@@ -1,0 +1,572 @@
+#!/usr/bin/env python3
+"""Quickest proof that the PyTorch/CUDA port starts on the card.
+
+    python3 chip_smoke.py
+
+Needs one NVIDIA card and the checkout (it puts ``src/`` on ``sys.path``
+itself). Imports no JAX and nothing of the JAX package. Phases, any failure
+of which ends the run with a non-zero exit and no result line:
+
+1. device: ``nvidia-smi`` name and power limit, torch's device name/count;
+2. build: every kernel of the slice from ``src/repro_torch/kernels/csrc``
+   with ``nvcc`` for sm_90a, all sources at once;
+3. kernels: each kernel's wrapper on the shapes a full-width bitnet-2b
+   decode tick gives it (4 slots), held against its plain PyTorch version
+   on the same inputs with the stated tolerance, and timed with CUDA events
+   beside the plain version, one PyTorch library call, and its bound;
+4. serving: ``ServeEngine`` over ``PagedKV`` (page 64, 4 slots) at full
+   width with seeded random weights, 8 greedy requests of 12-32 prompt
+   tokens and 16 new tokens; launch counts zeroed just before, read just
+   after, every logit checked finite;
+5. identity: two greedy requests through the kernels; at every tick, every
+   layer's attention and FFN block and the logits run through the kernels
+   and through the plain versions (``plain=True``) on the same input and a
+   copy of the same KV state, within stated tolerances (with a control that
+   cuts attention to one position, to show the tolerance is far below what
+   a wrong attention moves); then the same requests through the plain
+   versions alone, greedy tokens equal over 8 steps except at a reported
+   near-tie.
+
+The line before the last is ``{"kernels": [...]}``; the last is
+``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+#: H100 SXM data-sheet peaks (dense): device memory rate and arithmetic rates
+HBM_BYTES_S = 3.35e12
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+SLOTS, PAGE, MAX_LEN = 4, 64, 1024
+#: greedy picks whose top-2 logit gap is below this are near-ties
+TIE_TOL = 5e-2
+#: kernel vs plain output of each layer's attention and FFN block from the
+#: same input and KV state: max |diff| over live rows within this fraction of
+#: the plain output's max |value| (bf16 outputs, each rounded once after f32
+#: sums taken in another order: a few bf16 ulps, 2^-8 each)
+BLOCK_TOL = 1e-2
+#: the same for the f32 logits from the same final hidden state (f32 sums in
+#: another order, and (x·t)·scale against x·(t·scale))
+LOGITS_TOL = 1e-4
+#: attention that reads only position 0 must move each attention block's
+#: output by at least this many tolerances, or the check could not see a
+#: wrong attention kernel
+CONTROL_MARGIN = 10.0
+
+
+def _fail(msg: str) -> int:
+    print(f"chip_smoke: {msg}", file=sys.stderr)
+    return 2
+
+
+def _time_ms(fn, args_list, reps: int):
+    """(device ms, wall ms) per call over ``reps`` calls cycling through
+    ``args_list`` (enough copies to keep the weights out of the 50 MB L2,
+    as a decode tick that streams ~480 MB of weights finds them). Device ms
+    is the kernel time ``torch.profiler`` records on the card; wall ms comes
+    from CUDA events around the back-to-back calls and also holds the gaps
+    in which the card waits for the host to enqueue the next call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for i in range(3):
+        fn(*args_list[i % len(args_list)])
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(reps):
+        fn(*args_list[i % len(args_list)])
+    stop.record()
+    torch.cuda.synchronize()
+    wall = start.elapsed_time(stop) / reps
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(reps):
+            fn(*args_list[i % len(args_list)])
+        torch.cuda.synchronize()
+    dev_us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    if dev_us <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    return dev_us / reps / 1e3, wall
+
+
+def _copies(nbytes: int, floor: int = 120 << 20) -> int:
+    return max(1, -(-floor // max(nbytes, 1)))
+
+
+def bench_ternary_matmul(torch, cfg):
+    """Kernel #1 at the decode tick's shapes; returns its JSON entry."""
+    from repro_torch.core import ternary
+    from repro_torch.kernels.ternary_matmul import ops as tm_ops
+    from repro_torch.kernels.ternary_matmul.ref import ternary_matmul_ref
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+    d, dff, m = cfg.d_model, cfg.d_ff, SLOTS
+    # (name, K, N, x/out type, launches per tick)
+    shapes = [("q,o", d, cfg.q_dim, torch.bfloat16, 2 * cfg.num_layers),
+              ("k,v", d, cfg.kv_dim, torch.bfloat16, 2 * cfg.num_layers),
+              ("up", d, dff, torch.bfloat16, cfg.num_layers),
+              ("down", dff, d, torch.bfloat16, cfg.num_layers),
+              ("logits", d, cfg.vocab_padded, torch.float32, 1)]
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    max_err, bytes_tick, ops_bound_tick, bytes_bound_tick = 0.0, 0, 0.0, 0.0
+    for name, k, n, dt, per_tick in shapes:
+        w = torch.randn((k, n), generator=g, device=dev) * k ** -0.5
+        t, s = ternary.quantize(w)
+        packed = ternary.pack2(t)
+        x = torch.randn((m, k), generator=g, device=dev).to(dt)
+        got = tm_ops.ternary_matmul(x, packed, s, out_dtype=dt)
+        want = ternary_matmul_ref(x, packed, s, out_dtype=dt)
+        torch.cuda.synchronize()
+        # f32: summation order only; bf16: plus one rounding of the output
+        tol = (dict(rtol=1e-5, atol=1e-4) if dt == torch.float32
+               else dict(rtol=1e-2, atol=1e-2))
+        err = (got.float() - want.float()).abs().max().item()
+        rel = err / max(want.float().abs().max().item(), 1e-30)
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+        max_err = max(max_err, err)
+        n_pk = _copies(packed.numel())
+        pk = [packed.clone() for _ in range(n_pk)]
+        ms, ms_wall = _time_ms(lambda p: tm_ops.ternary_matmul(x, p, s, out_dtype=dt),
+                               [(p,) for p in pk], reps=max(20, 2 * n_pk))
+        plain_ms, _ = _time_ms(
+            lambda p: ternary_matmul_ref(x, p, s, out_dtype=dt),
+            [(p,) for p in pk[:2]], reps=5)
+        del pk
+        wl = (t.to(dt) * s).to(dt)             # pre-unpacked, pre-scaled weight
+        n_w = _copies(wl.numel() * wl.element_size())
+        wls = [wl.clone() for _ in range(n_w)]
+        lib_ms, lib_wall = _time_ms(lambda wt: torch.matmul(x, wt),
+                                    [(wt,) for wt in wls], reps=max(20, 2 * n_w))
+        del wls, wl, w, t
+        nbytes = (x.numel() * x.element_size() + packed.numel() + 4
+                  + m * n * x.element_size())
+        ops = 2 * m * k * n
+        rate = PEAK_FLOPS["f32" if dt == torch.float32 else "bf16"]
+        b_bytes, b_ops = nbytes / HBM_BYTES_S * 1e3, ops / rate * 1e3
+        print(f"[kernel] ternary_matmul {name:6s} M={m} K={k} N={n} "
+              f"{str(dt).split('.')[-1]}: max_abs_err={err:.3e} "
+              f"max_rel_err={rel:.3e} (tol rtol={tol['rtol']} atol={tol['atol']}) "
+              f"kernel={ms:.4f}ms (wall {ms_wall:.4f}) plain={plain_ms:.4f}ms "
+              f"library(matmul)={lib_ms:.4f}ms (wall {lib_wall:.4f}) "
+              f"bound={max(b_bytes, b_ops):.4f}ms "
+              f"({'bytes' if b_bytes >= b_ops else 'operations'}) x{per_tick}/tick",
+              flush=True)
+        tot["ms"] += per_tick * ms
+        tot["plain_ms"] += per_tick * plain_ms
+        tot["library_ms"] += per_tick * lib_ms
+        bytes_tick += per_tick * nbytes
+        bytes_bound_tick += per_tick * b_bytes
+        ops_bound_tick += per_tick * b_ops
+        tot["bound_ms"] += per_tick * max(b_bytes, b_ops)
+    print(f"[kernel] ternary_matmul per tick: {bytes_tick / 1e6:.1f} MB, "
+          f"bytes bound {bytes_bound_tick:.4f} ms, operations bound "
+          f"{ops_bound_tick:.4f} ms", flush=True)
+    return {"name": "ternary_matmul", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ternary_matmul.cu",
+            "replaces": "src/repro/kernels/ternary_matmul/ternary_matmul.py:65",
+            "max_abs_err": max_err,
+            "bound_by": "bytes" if bytes_bound_tick >= ops_bound_tick else "operations",
+            "per": f"one full-width decode tick at {SLOTS} slots "
+                   f"({6 * cfg.num_layers + 1} launches)",
+            **tot}
+
+
+def bench_paged_decode(torch, cfg):
+    """Kernel #2 at the decode tick's shape; returns its JSON entry."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.kernels.flash_decode.paged import paged_flash_decode_ref
+    from repro_torch.models.layers import KV_CACHE_SCALE
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2)
+    hkv, hq, d = cfg.num_kv_heads, cfg.num_heads, cfg.head_dim
+    n_pages = SLOTS * (MAX_LEN // PAGE)
+    lengths_l = [37, 100, 0, 180]              # 1, 2, 0 (inactive) and 3 pages
+    shape = (n_pages + 1, hkv, PAGE, d)
+    n_copies = _copies(2 * n_pages * hkv * PAGE * d)
+    pools = [((torch.randn(shape, generator=g, device=dev) * 4)
+              .to(torch.float8_e4m3fn),
+              (torch.randn(shape, generator=g, device=dev) * 4)
+              .to(torch.float8_e4m3fn)) for _ in range(n_copies)]
+    n_p = 4
+    tables = torch.full((SLOTS, n_p), n_pages, dtype=torch.int32)
+    perm = torch.randperm(n_pages, generator=torch.Generator().manual_seed(3))
+    used = 0
+    for b, ln in enumerate(lengths_l):
+        k = -(-ln // PAGE)
+        tables[b, :k] = perm[used:used + k].to(torch.int32)
+        used += k
+    tables, lengths = tables.to(dev), torch.tensor(lengths_l, dtype=torch.int32, device=dev)
+    q = torch.randn((SLOTS, hq, d), generator=g, device=dev).to(torch.bfloat16)
+    kp, vp = pools[0]
+    got = fd_ops.paged_decode_attention(q, kp, vp, tables, lengths, KV_CACHE_SCALE)
+    want = paged_flash_decode_ref(q.reshape(SLOTS, hkv, -1, d), kp, vp, tables, lengths,
+                                  KV_CACHE_SCALE).reshape(SLOTS, hq, d)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    scale_out = want.abs().max().item()
+    # f32 sums taken in another order: an error of ~1e-5 of the outputs' scale
+    atol = 1e-5 * scale_out
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=atol)
+    if not torch.isfinite(got).all() or got[2].any():
+        raise AssertionError("inactive or live rows not as defined")
+    args = [(q, kp_, vp_, tables, lengths, KV_CACHE_SCALE) for kp_, vp_ in pools]
+    ms, ms_wall = _time_ms(fd_ops.paged_decode_attention, args,
+                           reps=max(50, 2 * n_copies))
+    plain_ms, _ = _time_ms(
+        lambda q_, kp_, vp_, t_, l_, s_: paged_flash_decode_ref(
+            q_.reshape(SLOTS, hkv, -1, d), kp_, vp_, t_, l_, s_), args[:2], reps=10)
+    # library yardstick: SDPA on a pre-gathered bf16 view of the same pages
+    s_len = n_p * PAGE
+    mask = (torch.arange(s_len, device=dev)[None] < lengths[:, None])[:, None, None, :]
+    views = []
+    for kp_, vp_ in pools[:2]:
+        kv = [(p[tables.long()].to(torch.bfloat16) * KV_CACHE_SCALE)
+              .permute(0, 2, 1, 3, 4).reshape(SLOTS, hkv, s_len, d) for p in (kp_, vp_)]
+        views.append((q[:, :, None], kv[0], kv[1]))
+    lib_ms, lib_wall = _time_ms(lambda q_, k_, v_: F.scaled_dot_product_attention(
+        q_, k_, v_, attn_mask=mask, enable_gqa=True), views, reps=50)
+    live = sum(lengths_l)
+    nbytes = (q.numel() * q.element_size() + 2 * live * hkv * d + tables.numel() * 4 + SLOTS * 4
+              + SLOTS * hq * d * 4)
+    ops = 4 * live * hq * d
+    b_bytes = nbytes / HBM_BYTES_S * 1e3
+    b_ops = ops / PEAK_FLOPS["f32"] * 1e3
+    L = cfg.num_layers
+    print(f"[kernel] paged_flash_decode B={SLOTS} Hq={hq} Hkv={hkv} D={d} page={PAGE} "
+          f"lengths={lengths_l} fp8: max_abs_err={err:.3e} "
+          f"max_rel_err={err / max(scale_out, 1e-30):.3e} (tol rtol=1e-05 atol={atol:.3e}) "
+          f"kernel={ms:.4f}ms "
+          f"(wall {ms_wall:.4f}) plain={plain_ms:.4f}ms library(sdpa)={lib_ms:.4f}ms "
+          f"(wall {lib_wall:.4f}) "
+          f"bound={max(b_bytes, b_ops):.5f}ms "
+          f"({'bytes' if b_bytes >= b_ops else 'operations'}) x{L}/tick", flush=True)
+    return {"name": "paged_flash_decode", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/paged_flash_decode.cu",
+            "replaces": "src/repro/kernels/flash_decode/paged.py:78",
+            "max_abs_err": err, "ms": L * ms, "plain_ms": L * plain_ms,
+            "library_ms": L * lib_ms, "bound_ms": L * max(b_bytes, b_ops),
+            "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+            "per": f"one full-width decode tick at {SLOTS} slots ({L} launches, "
+                   f"contexts {lengths_l})"}
+
+
+def _watch_logits(model):
+    """Wrap ``model.decode_step`` to keep every tick's logits finite-check
+    (on the device, no sync) and the top-2 values of each row."""
+    import torch
+    state = {"finite": torch.ones((), dtype=torch.bool, device=model.device),
+             "top2": []}
+    inner = model.decode_step
+
+    def decode_step(p, kv, tokens, pos):
+        logits, kv = inner(p, kv, tokens, pos)
+        state["finite"] &= torch.isfinite(logits).all()
+        state["top2"].append(logits.topk(2, dim=-1))
+        return logits, kv
+
+    model.decode_step = decode_step
+    return state
+
+
+def serve(torch, cfg, eng):
+    """Phase 4: full-width serving through the kernels."""
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.kernels.ternary_matmul import ops as tm_ops
+    from repro_torch.serving.api import RequestSpec
+    import numpy as np
+
+    watch = _watch_logits(eng.model)
+    rng = np.random.default_rng(0)
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, size=int(n))]
+               for n in rng.integers(12, 33, size=8)]
+    # warm-up request (first launches, allocator), not counted
+    eng.submit(prompts[0][:4], RequestSpec(max_new_tokens=2))
+    eng.run_until_drained()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ticks0 = eng.stats.ticks
+    tm_ops.launches.n = 0
+    fd_ops.launches.n = 0
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, RequestSpec(max_new_tokens=16)) for p in prompts]
+    eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"ternary_matmul": tm_ops.launches.n,
+                "paged_flash_decode": fd_ops.launches.n}
+    ticks = eng.stats.ticks - ticks0
+    if not all(r.state == "done" and len(r.output) == 16 for r in reqs):
+        raise AssertionError("not every request completed with 16 tokens")
+    if not bool(watch["finite"]):
+        raise AssertionError("non-finite logits during serving")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel of the path never launched: {launches}")
+    per_tick = {"ternary_matmul": 6 * cfg.num_layers + 1,
+                "paged_flash_decode": cfg.num_layers}
+    for name, n in per_tick.items():
+        if launches[name] != n * ticks:
+            raise AssertionError(f"{name}: {launches[name]} launches in {ticks} ticks, "
+                                 f"expected {n} per tick")
+    tokens = sum(len(r.output) for r in reqs)
+    ttft = sorted(r.ttft_s for r in reqs)
+    out = {"requests": len(reqs), "tokens": tokens, "ticks": ticks,
+           "wall_s": wall, "tps": tokens / wall,
+           "tick_ms_mean": wall / ticks * 1e3,
+           "ttft_p50_ms": float(np.median(ttft)) * 1e3,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "launches": launches}
+    print("[serve]", json.dumps(out), flush=True)
+    return launches, out["tick_ms_mean"]
+
+
+def profile_ticks(torch, eng, tick_ms: float, n_ticks: int = 10):
+    """Where a steady decode tick's time goes: ``torch.profiler`` (device
+    activity only) over ``n_ticks`` ticks of 4 busy slots; device time by
+    kernel, and its share of ``tick_ms``, the unprofiled mean tick wall of
+    phase 4."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving.api import RequestSpec
+
+    for i in range(SLOTS):
+        eng.submit([100 + i, 7, 8, 9], RequestSpec(max_new_tokens=n_ticks + 8))
+    for _ in range(3):
+        eng.tick()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_ticks):
+            eng.tick()
+        torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    eng.run_until_drained()
+
+    def dev_us(e):
+        return e.self_device_time_total
+
+    # kernel events only: a CPU op's device time repeats its kernels' time
+    events = sorted((e for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=dev_us, reverse=True)
+    busy = sum(dev_us(e) for e in events)
+    top = [{"name": e.key[:60], "calls": e.count, "device_ms_per_tick": dev_us(e) / n_ticks / 1e3}
+           for e in events[:8] if dev_us(e) > 0]
+    print("[profile]", json.dumps({
+        "ticks": n_ticks, "profiled_wall_ms_per_tick": wall_us / n_ticks / 1e3,
+        "device_busy_ms_per_tick": busy / n_ticks / 1e3,
+        "device_busy_share_of_unprofiled_tick": (busy / n_ticks / 1e3 / tick_ms
+                                                 if busy else "not measured"),
+        "top_device": top}), flush=True)
+
+
+def _stepwise_watch(torch, model, cfg):
+    """Wrap the kernel model's ``decode_step``: before each step, walk its
+    layers from the kernel path's own activations and run each attention
+    block (on a copy of that layer's pools) and each FFN block through the
+    kernels and through the plain versions on the same input; then the
+    logits of the final hidden state both ways. As a control, the plain
+    attention also runs with every live length cut to 1 (position 0 only).
+    The walk's kernel logits must equal the real step's bit for bit, which
+    ties it to ``Model.decode_step``. Keeps, per tick, the largest relative
+    differences and the smallest relative control change over layers."""
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import layers
+    from repro_torch.models.transformer import Model
+
+    plain = Model(cfg, device=model.device, plain=True)
+    inner = model.decode_step
+    rows = []
+
+    def rel(a, b):
+        return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+
+    def walk(p, kv, tokens, pos):
+        live = kv.lengths > 0
+        cut = torch.clamp(kv.lengths, max=1)
+        row = {"min_len": int(kv.lengths[live].min()), "attn": 0.0, "ffn": 0.0,
+               "control": float("inf")}
+        x = layers.embed_tokens(p["embed"], tokens, model.dtype)
+        for i, lp in enumerate(p["layers"]):
+            h = layers.rms_norm(x, lp["norm1"]["w"], cfg.norm_eps)
+            out = {}
+            for name, is_plain, lengths in (("kernel", False, kv.lengths),
+                                            ("plain", True, kv.lengths),
+                                            ("cut", True, cut)):
+                out[name] = attn_mod.gqa_decode_paged(
+                    lp["attn"], h, kv.k_pool[i].clone(), kv.v_pool[i].clone(),
+                    kv.tables, kv.write_page, kv.write_off, lengths, pos, cfg,
+                    plain=is_plain)[live]
+            row["attn"] = max(row["attn"], rel(out["kernel"], out["plain"]))
+            row["control"] = min(row["control"], rel(out["cut"], out["plain"]))
+            full = torch.zeros_like(x)
+            full[live] = out["kernel"]
+            x = x + full
+            h2 = layers.rms_norm(x, lp["norm2"]["w"], cfg.norm_eps)
+            f = layers.apply_ffn(lp["ffn"], h2, cfg.ffn_kind)
+            f_plain = layers.apply_ffn(lp["ffn"], h2, cfg.ffn_kind, plain=True)
+            row["ffn"] = max(row["ffn"], rel(f[live], f_plain[live]))
+            x = x + f
+        x = layers.rms_norm(x, p["final_norm"]["w"], cfg.norm_eps)
+        logits = model._logits(p, x)
+        row["logits"] = rel(logits[live, :cfg.vocab_size],
+                            plain._logits(p, x)[live, :cfg.vocab_size])
+        return logits, row
+
+    def decode_step(p, kv, tokens, pos):
+        walked, row = walk(p, kv, tokens, pos)
+        logits, kv = inner(p, kv, tokens, pos)
+        row["walk_is_step"] = bool(torch.equal(walked[kv.lengths > 0],
+                                               logits[kv.lengths > 0]))
+        rows.append(row)
+        return logits, kv
+
+    model.decode_step = decode_step
+    return rows
+
+
+def identity(torch, cfg, params):
+    """Phase 5: kernels vs plain versions at full width."""
+    from repro_torch.models.transformer import Model
+    from repro_torch.serving.api import RequestSpec
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.kv import PagedKV
+
+    prompts = [[11, 2024, 7, 99, 5012, 3, 870, 41, 12, 9, 1000, 77],
+               [5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20]]
+    runs = []
+    for plain in (False, True):
+        model = Model(cfg, device="cuda", plain=plain)
+        watch = _watch_logits(model)
+        rows = None if plain else _stepwise_watch(torch, model, cfg)
+        eng = ServeEngine(model, params, max_slots=2, max_len=MAX_LEN, seed=0,
+                          kv=PagedKV(page=PAGE))
+        reqs = [eng.submit(p, RequestSpec(max_new_tokens=8)) for p in prompts]
+        eng.run_until_drained()
+        runs.append(([r.output for r in reqs], watch["top2"], rows))
+        del eng
+    (k_out, k_top2, rows), (p_out, _, _) = runs
+
+    # every block and the logits on the same input and state, every tick
+    worst = {k: max(r[k] for r in rows) for k in ("attn", "ffn", "logits")}
+    # the control is read where every live slot has more than one position
+    ctrl = min(r["control"] for r in rows if r["min_len"] > 1)
+    print("[identity] stepwise", json.dumps({
+        "ticks": len(rows), "max_rel_err": worst,
+        "tol": {"attn": BLOCK_TOL, "ffn": BLOCK_TOL, "logits": LOGITS_TOL},
+        "min_control_rel_change": ctrl, "control_margin": CONTROL_MARGIN,
+        "walk_is_step": all(r["walk_is_step"] for r in rows),
+        "per_tick": [{k: r[k] for k in ("min_len", "attn", "ffn", "logits", "control")}
+                     for r in rows]}), flush=True)
+    if not all(r["walk_is_step"] for r in rows):
+        raise AssertionError("the stepwise walk's logits differ from Model.decode_step's")
+    for k, tol in (("attn", BLOCK_TOL), ("ffn", BLOCK_TOL), ("logits", LOGITS_TOL)):
+        if worst[k] > tol:
+            raise AssertionError(f"{k}: kernel path differs from the plain path on the "
+                                 f"same input by {worst[k]:.3e} of its scale (tol {tol})")
+    if ctrl < CONTROL_MARGIN * BLOCK_TOL:
+        raise AssertionError(f"attention over one position moved an attention block by "
+                             f"only {ctrl:.3e} of its scale: the tolerance {BLOCK_TOL} "
+                             f"could not see a wrong attention kernel")
+
+    # greedy tokens of the two paths, each run on its own
+    report = []
+    for r, (a, b) in enumerate(zip(k_out, p_out)):
+        if a == b:
+            continue
+        j = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+        # tick of the j-th emission of slot r: its prompt ticks, then j more
+        tick = len(prompts[r]) - 1 + j
+        vals = k_top2[tick].values[r]
+        gap = (vals[0] - vals[1]).item()
+        report.append({"request": r, "step": j, "top2_gap": gap})
+        if gap >= TIE_TOL:
+            raise AssertionError(f"greedy tokens diverge at request {r} step {j} "
+                                 f"without a near-tie (gap {gap:.4f}): {a} vs {b}")
+    print("[identity] greedy", json.dumps({"kernel_tokens": k_out, "plain_tokens": p_out,
+                                           "near_ties": report, "tie_tol": TIE_TOL}),
+          flush=True)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        return _fail("no CUDA device: the port's smoke run needs the card")
+    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
+        return _fail(f"no port sources under {SRC}: run from a checkout")
+    sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # 1. device
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True, timeout=60).stdout.strip().splitlines()[0]
+    kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
+    print(f"[device] {kind} x{count}; torch {torch.__version__} cuda "
+          f"{torch.version.cuda}; python {sys.version.split()[0]}", flush=True)
+
+    # 2. build
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    _build.build(["ternary_matmul", "paged_flash_decode"])
+    print(f"[build] nvcc sm_90a, both sources in parallel: "
+          f"{time.perf_counter() - t0:.1f}s {_build.BUILD_SECONDS}", flush=True)
+    for name, log in _build.PTXAS.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build] {name}: {line.strip()}", flush=True)
+
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.models.transformer import Model
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.kv import PagedKV
+
+    cfg = reduce_config(get_config("bitnet-2b"), "full")
+
+    # 3. kernels against their plain versions, timed
+    kernels = [bench_ternary_matmul(torch, cfg), bench_paged_decode(torch, cfg)]
+    torch.cuda.empty_cache()
+
+    # 4. full-width serving through the kernels
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    print(f"[init] bitnet-2b full width, seeded random weights: "
+          f"{time.perf_counter() - t0:.1f}s, "
+          f"{torch.cuda.memory_allocated() / 1e6:.1f} MB on the card", flush=True)
+    engine = ServeEngine(model, params, max_slots=SLOTS, max_len=MAX_LEN, seed=0,
+                         kv=PagedKV(page=PAGE))
+    launches, tick_ms = serve(torch, cfg, engine)
+    profile_ticks(torch, engine, tick_ms)
+    del engine
+    torch.cuda.empty_cache()
+
+    # 5. identity between the kernel and plain paths
+    identity(torch, cfg, params)
+
+    for entry in kernels:
+        entry["launches"] = launches[entry["name"]]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": count}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,54 @@
+"""Parameter bridge from the reference: turn ``repro``'s serve-mode
+``Model.init`` pytree, handed over as numpy arrays, into the port's
+parameters. Numpy only, so it needs no JAX; the tests use it to give both
+sides the same numbers.
+"""
+from __future__ import annotations
+
+from typing import Any, Mapping, Optional, Union
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import layers
+from repro_torch.models.layers import Params
+
+
+def _tensor(a: Any, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def _tree(node: Any, device: torch.device) -> Any:
+    if isinstance(node, Mapping):
+        return {k: _tree(v, device) for k, v in node.items()}
+    return _tensor(node, device)
+
+
+def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig,
+                    device: Optional[Union[str, torch.device]] = None
+                    ) -> Params:
+    """``tree``: the reference's serve-mode params with numpy leaves (uint8
+    ``packed``/``packed_rows`` codes, f32 ``scale`` and norm weights). The
+    ``layers`` stack, scanned on its leading axis there, becomes a list of
+    per-layer dicts; the tied head's transposed copy is added."""
+    dev = resolve_device(device)
+    if cfg.family != "dense" or "prefix" in tree or "head" in tree:
+        raise NotImplementedError(
+            "the port converts dense, tied-embedding models only")
+    stack = tree["layers"]
+    n = np.asarray(stack["norm1"]["w"]).shape[0]
+    if n != cfg.num_layers:
+        raise ValueError(f"tree has {n} layers, config {cfg.num_layers}")
+
+    def layer(i: int, node: Any) -> Any:
+        if isinstance(node, Mapping):
+            return {k: layer(i, v) for k, v in node.items()}
+        return _tensor(np.asarray(node)[i], dev)
+
+    embed = _tree(tree["embed"], dev)
+    embed["packed_t"] = layers.logits_weight(embed["packed_rows"])
+    return {"embed": embed,
+            "final_norm": _tree(tree["final_norm"], dev),
+            "layers": [layer(i, stack) for i in range(n)]}

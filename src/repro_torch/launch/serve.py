@@ -1,0 +1,106 @@
+"""Serving CLI of the port: build a packed-ternary model from a seed and
+run a synthetic request stream through ``ServeEngine`` over the paged fp8
+KV pool (the port of ``repro/launch/serve.py``'s synthetic-stream path).
+
+On the card, at the published width of bitnet-2b::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch bitnet-2b \\
+        --preset full --kv paged --page 64 --slots 4 --requests 8 \\
+        --prompt-len 12 --max-new 16
+
+``--device cpu`` runs the plain PyTorch path (use ``--preset tiny`` there).
+Prints one ``[serve] {...}`` JSON line of the engine stats.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config, reduce_config
+from repro_torch.models.transformer import Model
+from repro_torch.serving.api import RequestSpec, SamplingParams
+from repro_torch.serving.engine import ServeEngine
+from repro_torch.serving.kv import PagedKV
+
+
+def build_engine(arch: str, preset: str, *, slots: int, max_len: int,
+                 page: int = 64, n_pages=None, seed: int = 0, device=None,
+                 plain: bool = False) -> ServeEngine:
+    """A seeded model at ``preset`` size behind a paged-KV engine."""
+    cfg = reduce_config(get_config(arch), preset)
+    model = Model(cfg, device=device, plain=plain)
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+    params = model.init(gen)
+    return ServeEngine(model, params, max_slots=slots, max_len=max_len,
+                       seed=seed, kv=PagedKV(page=page, n_pages=n_pages))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawTextHelpFormatter)
+    ap.add_argument("--arch", default="bitnet-2b")
+    ap.add_argument("--preset", default="tiny", choices=("tiny", "small", "full"))
+    ap.add_argument("--requests", type=int, default=16)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--max-len", type=int, default=256)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--prompt-len", type=int, default=12)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--top-p", type=float, default=1.0,
+                    help="nucleus sampling mass (1.0 = disabled)")
+    ap.add_argument("--kv", default="paged", choices=("paged",))
+    ap.add_argument("--page", type=int, default=64)
+    ap.add_argument("--n-pages", type=int, default=None,
+                    help="pool capacity (default: slots * max_len / page)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card; 'cpu' runs "
+                         "the plain PyTorch path)")
+    args = ap.parse_args(argv)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    eng = build_engine(args.arch, args.preset, slots=args.slots,
+                       max_len=args.max_len, page=args.page,
+                       n_pages=args.n_pages, seed=args.seed,
+                       device=args.device)
+    rng = np.random.default_rng(args.seed)
+    vocab = eng.cfg.vocab_size
+    reqs = []
+    for i in range(args.requests):
+        plen = int(rng.integers(max(2, args.prompt_len // 2),
+                                args.prompt_len + 1))
+        prompt = [int(t) for t in rng.integers(0, min(vocab, 1000), size=plen)]
+        reqs.append(eng.submit(
+            prompt, RequestSpec(max_new_tokens=args.max_new, priority=i % 2),
+            SamplingParams(temperature=args.temperature, top_p=args.top_p)))
+    t0 = time.time()
+    stats = eng.run_until_drained()
+    wall = time.time() - t0
+
+    done = [r for r in reqs if r.state == "done"]
+    ttfts = [r.ttft_s for r in done] or [0.0]
+    lats = [r.latency_s for r in done] or [0.0]
+    out = {
+        "device": str(eng.device),
+        "requests": len(reqs),
+        "completed": stats.completed,
+        "tokens_out": stats.tokens_out,
+        "ticks": stats.ticks,
+        "preemptions": stats.preemptions,
+        "wall_s": round(wall, 3),
+        "throughput_tps": round(stats.tokens_out / wall, 1) if wall else 0.0,
+        "ttft_p50_ms": round(float(np.median(ttfts)) * 1e3, 1),
+        "ttft_p99_ms": round(float(np.quantile(ttfts, 0.99)) * 1e3, 1),
+        "latency_p50_ms": round(float(np.median(lats)) * 1e3, 1),
+    }
+    print("[serve]", json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
