@@ -14,10 +14,16 @@ of which ends the run with a non-zero exit and no result line:
    decode tick gives it (4 slots), held against its plain PyTorch version
    on the same inputs with the stated tolerance, and timed with CUDA events
    beside the plain version, one PyTorch library call, and its bound;
-4. serving: ``ServeEngine`` over ``PagedKV`` (page 64, 4 slots) at full
-   width with seeded random weights, 8 greedy requests of 12-32 prompt
-   tokens and 16 new tokens; launch counts zeroed just before, read just
-   after, every logit checked finite;
+4. serving, two paths, each with the launch counts zeroed just before it
+   and read just after, every logit checked finite:
+   a. ``ServeEngine`` over ``PagedKV`` (page 64, 4 slots) at full width with
+      seeded random weights, 8 greedy requests of 12-32 prompt tokens and 16
+      new tokens (no adapters: kernel #3 must not launch);
+   b. the same engine with ``adapters=AdapterServing(...)``: 4 synthetic
+      tenants (rank 8, alpha 16, on q and v) behind a budget of 2, 8 greedy
+      requests of which 6 name a tenant, so that adapter-less and tenant
+      rows share ticks and tenants are evicted and pinned; kernel #3
+      launches once per targeted projection and tick (60);
 5. identity: two greedy requests through the kernels; at every tick, every
    layer's attention and FFN block and the logits run through the kernels
    and through the plain versions (``plain=True``) on the same input and a
@@ -25,10 +31,18 @@ of which ends the run with a non-zero exit and no result line:
    cuts attention to one position, to show the tolerance is far below what
    a wrong attention moves); then the same requests through the plain
    versions alone, greedy tokens equal over 8 steps except at a reported
-   near-tie.
+   near-tie. Then the same per-layer walk on the adapter engine with a
+   per-slot index mixing tenants and 0: the kernel path's targeted
+   projections and attention blocks within the tolerance of the plain
+   path's; a control with every index set to 0 moves each tenant row's
+   targeted projections in every layer, and its attention block in the
+   layer where it moves most, by many tolerances; null rows equal the
+   engine without adapters bit for bit.
 
-The line before the last is ``{"kernels": [...]}``; the last is
-``{"ok": true, "device": {...}}``.
+The line before the last is ``{"kernels": [...]}``: each kernel's
+``launches`` is its count in pass 4b, this slice's main path, which runs
+all three kernels; ``launches_by_path`` has the count of each pass. The
+last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -57,8 +71,16 @@ BLOCK_TOL = 1e-2
 LOGITS_TOL = 1e-4
 #: attention that reads only position 0 must move each attention block's
 #: output by at least this many tolerances, or the check could not see a
-#: wrong attention kernel
+#: wrong attention kernel; the same margin holds for dropping the tenants'
+#: LoRA terms (every index 0) against a wrong batched-LoRA kernel
 CONTROL_MARGIN = 10.0
+#: kernel #3 vs its plain version: max |diff| within this fraction of the
+#: plain output's max |value| (f32 sums over K and r in another order; the
+#: kernel reads the bf16 activations as given, as the plain version does)
+LORA_TOL = 1e-5
+#: the multi-tenant pass: 4 tenants at rank 8, alpha 2·rank, on q and v,
+#: behind an SRAM budget of 2 tenants (``launch/serve.py``'s defaults)
+TENANTS, RANK, BUDGET_TENANTS = 4, 8, 2
 
 
 def _fail(msg: str) -> int:
@@ -263,16 +285,110 @@ def bench_paged_decode(torch, cfg):
                    f"contexts {lengths_l})"}
 
 
+def bench_batched_lora(torch, cfg):
+    """Kernel #3 at the decode tick's q and v shapes (4 slots, rank 8, four
+    tenants plus the null slot, one adapter-less row); returns its entry."""
+    from repro_torch.core import ternary
+    from repro_torch.kernels.batched_lora import ops as bl_ops
+    from repro_torch.kernels.batched_lora.ref import batched_lora_ref
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4)
+    k, r, n_stack = cfg.d_model, RANK, TENANTS + 1
+    idx_l = [2, 0, 4, 1]
+    idx = torch.tensor(idx_l, dtype=torch.int32, device=dev)
+    tenants = idx != 0
+    distinct = len({i for i in idx_l if i})
+    x = torch.randn((SLOTS, k), generator=g, device=dev).to(torch.bfloat16)
+    L = cfg.num_layers
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    max_err, bytes_tick, ops_tick = 0.0, 0, 0
+    for name, n in (("q", cfg.q_dim), ("v", cfg.kv_dim)):
+        def stacks():
+            t_a = torch.randint(-1, 2, (n_stack, k, r), generator=g, device=dev)
+            t_b = torch.randint(-1, 2, (n_stack, r, n), generator=g, device=dev)
+            t_a[0] = 0
+            t_b[0] = 0
+            s = torch.rand((n_stack,), generator=g, device=dev) * 0.05 + 0.01
+            s[0] = 0
+            return ternary.pack2(t_a), ternary.pack2(t_b), s
+        a, b, s = stacks()
+        got = bl_ops.batched_lora(x, a, b, s, idx)
+        want = batched_lora_ref(x, a, b, s, idx)
+        torch.cuda.synchronize()
+        scale_out = want.abs().max().item()
+        err = (got - want).abs().max().item()
+        torch.testing.assert_close(got, want, rtol=LORA_TOL, atol=LORA_TOL * scale_out)
+        if not torch.equal(got[~tenants], torch.zeros_like(got[~tenants])):
+            raise AssertionError("batched_lora: a null-adapter row is not exactly 0")
+        # control: the right rows for the wrong tenants are off by far more
+        wrong = batched_lora_ref(x, a, b, s, torch.where(tenants, idx % TENANTS + 1, idx))
+        ctrl = (got - wrong).abs().amax(dim=1)[tenants].min().item() / scale_out
+        if ctrl < CONTROL_MARGIN * LORA_TOL:
+            raise AssertionError(f"batched_lora: the wrong tenants move a row by only "
+                                 f"{ctrl:.3e} of the output scale")
+        max_err = max(max_err, err)
+        nb_stack = a.numel() + b.numel() + s.numel() * 4
+        n_cp = _copies(nb_stack)
+        cps = [stacks() for _ in range(n_cp)]
+        ms, ms_wall = _time_ms(lambda a_, b_, s_: bl_ops.batched_lora(x, a_, b_, s_, idx),
+                               cps, reps=max(50, 2 * n_cp))
+        plain_ms, _ = _time_ms(lambda a_, b_, s_: batched_lora_ref(x, a_, b_, s_, idx),
+                               cps[:2], reps=10)
+        del cps
+        # library yardstick: two torch.bmm on f32 stacks pre-unpacked,
+        # gathered by idx and pre-scaled (never called by the port)
+        il = idx.long()
+        xf = x.float()[:, None]
+        lib = []
+        for _ in range(_copies(SLOTS * (k * r + r * n) * 4)):
+            a_, b_, s_ = stacks()
+            lib.append((ternary.unpack2(a_[il]).float(),
+                        ternary.unpack2(b_[il]).float() * s_[il][:, None, None]))
+        lib_ms, lib_wall = _time_ms(lambda af, bf: torch.bmm(torch.bmm(xf, af), bf),
+                                    lib, reps=max(50, 2 * len(lib)))
+        del lib
+        # bytes: x at its own size, the codes and scale of each distinct
+        # tenant the batch names, idx, the f32 output
+        nbytes = (x.numel() * x.element_size() + distinct * (k // 4 * r + r // 4 * n + 4)
+                  + SLOTS * 4 + SLOTS * n * 4)
+        ops = int(tenants.sum()) * (2 * k * r + 2 * r * n + n)
+        b_bytes, b_ops = nbytes / HBM_BYTES_S * 1e3, ops / PEAK_FLOPS["f32"] * 1e3
+        print(f"[kernel] batched_lora {name} B={SLOTS} K={k} r={r} N={n} bf16 x, "
+              f"idx={idx_l}: max_abs_err={err:.3e} max_rel_err={err / scale_out:.3e} "
+              f"(tol {LORA_TOL} of max |plain| {scale_out:.3e}; wrong-tenant control "
+              f"{ctrl:.3e}) kernel={ms:.4f}ms (wall {ms_wall:.4f}) plain={plain_ms:.4f}ms "
+              f"library(2x bmm)={lib_ms:.4f}ms (wall {lib_wall:.4f}) "
+              f"bound={max(b_bytes, b_ops):.6f}ms ({nbytes} B, {ops} ops: "
+              f"{'bytes' if b_bytes >= b_ops else 'operations'}) x{L}/tick", flush=True)
+        tot["ms"] += L * ms
+        tot["plain_ms"] += L * plain_ms
+        tot["library_ms"] += L * lib_ms
+        tot["bound_ms"] += L * max(b_bytes, b_ops)
+        bytes_tick += L * nbytes
+        ops_tick += L * ops
+    b_bytes, b_ops = bytes_tick / HBM_BYTES_S * 1e3, ops_tick / PEAK_FLOPS["f32"] * 1e3
+    return {"name": "batched_lora", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/batched_lora.cu",
+            "replaces": "src/repro/kernels/batched_lora/batched_lora.py:43",
+            "max_abs_err": max_err,
+            "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+            "per": f"one full-width decode tick at {SLOTS} slots ({2 * L} launches, "
+                   f"rank {r}, idx {idx_l})",
+            **tot}
+
+
 def _watch_logits(model):
     """Wrap ``model.decode_step`` to keep every tick's logits finite-check
-    (on the device, no sync) and the top-2 values of each row."""
+    (on the device, no sync) and the top-2 values of each row. ``del
+    model.decode_step`` removes the wrapper."""
     import torch
     state = {"finite": torch.ones((), dtype=torch.bool, device=model.device),
              "top2": []}
     inner = model.decode_step
 
-    def decode_step(p, kv, tokens, pos):
-        logits, kv = inner(p, kv, tokens, pos)
+    def decode_step(p, kv, tokens, pos, adapter_idx=None):
+        logits, kv = inner(p, kv, tokens, pos, adapter_idx)
         state["finite"] &= torch.isfinite(logits).all()
         state["top2"].append(logits.topk(2, dim=-1))
         return logits, kv
@@ -281,10 +397,18 @@ def _watch_logits(model):
     return state
 
 
-def serve(torch, cfg, eng):
-    """Phase 4: full-width serving through the kernels."""
+def _launch_counters():
+    from repro_torch.kernels.batched_lora import ops as bl_ops
     from repro_torch.kernels.flash_decode import ops as fd_ops
     from repro_torch.kernels.ternary_matmul import ops as tm_ops
+    return {"ternary_matmul": tm_ops.launches, "paged_flash_decode": fd_ops.launches,
+            "batched_lora": bl_ops.launches}
+
+
+def serve(torch, cfg, eng, path: str, tenants=None):
+    """Phase 4: full-width serving through the kernels, 8 greedy requests
+    (``tenants[i]`` names request i's adapter). Returns (launches, mean
+    tick ms)."""
     from repro_torch.serving.api import RequestSpec
     import numpy as np
 
@@ -292,57 +416,81 @@ def serve(torch, cfg, eng):
     rng = np.random.default_rng(0)
     prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, size=int(n))]
                for n in rng.integers(12, 33, size=8)]
+    tenants = tenants or [None] * len(prompts)
     # warm-up request (first launches, allocator), not counted
-    eng.submit(prompts[0][:4], RequestSpec(max_new_tokens=2))
+    eng.submit(prompts[0][:4], RequestSpec(max_new_tokens=2, adapter_id=tenants[0]))
     eng.run_until_drained()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ticks0 = eng.stats.ticks
-    tm_ops.launches.n = 0
-    fd_ops.launches.n = 0
+    counters = _launch_counters()
+    for c in counters.values():
+        c.n = 0
+    ad = eng.adapters
     t0 = time.perf_counter()
-    reqs = [eng.submit(p, RequestSpec(max_new_tokens=16)) for p in prompts]
-    eng.run_until_drained()
+    reqs = [eng.submit(p, RequestSpec(max_new_tokens=16, adapter_id=t))
+            for p, t in zip(prompts, tenants)]
+    while any(r.state in ("queued", "running") for r in reqs):
+        if eng.stats.ticks - ticks0 > 4096:
+            raise AssertionError(f"{path}: requests still pending after 4096 ticks")
+        eng.tick()
+        if ad is not None:
+            # the budget holds, and every running tenant is resident and pinned
+            if ad.cache.bytes_used > ad.cache.budget_bytes:
+                raise AssertionError(f"adapter bytes {ad.cache.bytes_used} over budget")
+            for r, key in zip(eng.slot_req, eng.slot_adapter_key):
+                if r is not None and r.adapter_id is not None and not (
+                        key is not None and ad.cache.is_resident(key)
+                        and ad.cache.pinned(key)):
+                    raise AssertionError(f"{r.adapter_id} in flight but not pinned")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"ternary_matmul": tm_ops.launches.n,
-                "paged_flash_decode": fd_ops.launches.n}
+    launches = {name: c.n for name, c in counters.items()}
     ticks = eng.stats.ticks - ticks0
+    del eng.model.decode_step
     if not all(r.state == "done" and len(r.output) == 16 for r in reqs):
         raise AssertionError("not every request completed with 16 tokens")
     if not bool(watch["finite"]):
         raise AssertionError("non-finite logits during serving")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel of the path never launched: {launches}")
     per_tick = {"ternary_matmul": 6 * cfg.num_layers + 1,
-                "paged_flash_decode": cfg.num_layers}
+                "paged_flash_decode": cfg.num_layers,
+                "batched_lora": 0 if ad is None else 2 * cfg.num_layers}
     for name, n in per_tick.items():
         if launches[name] != n * ticks:
-            raise AssertionError(f"{name}: {launches[name]} launches in {ticks} ticks, "
-                                 f"expected {n} per tick")
+            raise AssertionError(f"{path}: {name}: {launches[name]} launches in {ticks} "
+                                 f"ticks, expected {n} per tick")
     tokens = sum(len(r.output) for r in reqs)
     ttft = sorted(r.ttft_s for r in reqs)
-    out = {"requests": len(reqs), "tokens": tokens, "ticks": ticks,
+    out = {"path": path, "requests": len(reqs), "tokens": tokens, "ticks": ticks,
            "wall_s": wall, "tps": tokens / wall,
            "tick_ms_mean": wall / ticks * 1e3,
            "ttft_p50_ms": float(np.median(ttft)) * 1e3,
            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
-           "launches": launches}
+           "launches": launches,
+           "launches_per_tick": {k: v / ticks for k, v in launches.items()}}
+    if ad is not None:
+        st = ad.stats()
+        if st["evictions"] < 1 or st["pinned"] != 0:
+            raise AssertionError(f"adapter cache: {st} (want evictions, no pins left)")
+        out["adapters"] = st
     print("[serve]", json.dumps(out), flush=True)
     return launches, out["tick_ms_mean"]
 
 
-def profile_ticks(torch, eng, tick_ms: float, n_ticks: int = 10):
+def profile_ticks(torch, eng, tick_ms: float, path: str, tenants=None,
+                  n_ticks: int = 10):
     """Where a steady decode tick's time goes: ``torch.profiler`` (device
-    activity only) over ``n_ticks`` ticks of 4 busy slots; device time by
-    kernel, and its share of ``tick_ms``, the unprofiled mean tick wall of
-    phase 4."""
+    activity only) over ``n_ticks`` ticks of 4 busy slots (``tenants[i]``
+    the adapter of slot i's request); device time by kernel, and its share
+    of ``tick_ms``, the unprofiled mean tick wall of phase 4."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serving.api import RequestSpec
 
+    tenants = tenants or [None] * SLOTS
     for i in range(SLOTS):
-        eng.submit([100 + i, 7, 8, 9], RequestSpec(max_new_tokens=n_ticks + 8))
+        eng.submit([100 + i, 7, 8, 9], RequestSpec(max_new_tokens=n_ticks + 8,
+                                                   adapter_id=tenants[i]))
     for _ in range(3):
         eng.tick()
     torch.cuda.synchronize()
@@ -365,7 +513,8 @@ def profile_ticks(torch, eng, tick_ms: float, n_ticks: int = 10):
     top = [{"name": e.key[:60], "calls": e.count, "device_ms_per_tick": dev_us(e) / n_ticks / 1e3}
            for e in events[:8] if dev_us(e) > 0]
     print("[profile]", json.dumps({
-        "ticks": n_ticks, "profiled_wall_ms_per_tick": wall_us / n_ticks / 1e3,
+        "path": path, "ticks": n_ticks,
+        "profiled_wall_ms_per_tick": wall_us / n_ticks / 1e3,
         "device_busy_ms_per_tick": busy / n_ticks / 1e3,
         "device_busy_share_of_unprofiled_tick": (busy / n_ticks / 1e3 / tick_ms
                                                  if busy else "not measured"),
@@ -376,12 +525,20 @@ def _stepwise_watch(torch, model, cfg):
     """Wrap the kernel model's ``decode_step``: before each step, walk its
     layers from the kernel path's own activations and run each attention
     block (on a copy of that layer's pools) and each FFN block through the
-    kernels and through the plain versions on the same input; then the
-    logits of the final hidden state both ways. As a control, the plain
-    attention also runs with every live length cut to 1 (position 0 only).
-    The walk's kernel logits must equal the real step's bit for bit, which
-    ties it to ``Model.decode_step``. Keeps, per tick, the largest relative
-    differences and the smallest relative control change over layers."""
+    kernels and through the plain versions on the same input and adapter
+    index; then the logits of the final hidden state both ways. As a
+    control, the plain attention also runs with every live length cut to 1
+    (position 0 only). With an adapter index, the targeted projections
+    (where kernel #3 adds its term) are held the same way, and two more
+    runs of each projection and attention block: the plain path with every
+    index 0 (a control: how far the tenants' LoRA terms move their rows) and
+    the kernel path without adapters (null rows must equal it bit for bit).
+    The walk's kernel logits
+    must equal the real step's bit for bit, which ties it to
+    ``Model.decode_step``. Keeps, per tick, the largest relative differences
+    and the smallest relative control changes over layers (for the adapter
+    control on attention blocks, per tenant row its largest change over
+    layers, beside the smallest in any layer)."""
     from repro_torch.models import attention as attn_mod
     from repro_torch.models import layers
     from repro_torch.models.transformer import Model
@@ -393,41 +550,81 @@ def _stepwise_watch(torch, model, cfg):
     def rel(a, b):
         return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
 
-    def walk(p, kv, tokens, pos):
+    def walk(p, kv, tokens, pos, aidx):
         live = kv.lengths > 0
         cut = torch.clamp(kv.lengths, max=1)
         row = {"min_len": int(kv.lengths[live].min()), "attn": 0.0, "ffn": 0.0,
                "control": float("inf")}
+        runs = [("kernel", False, kv.lengths, aidx), ("plain", True, kv.lengths, aidx),
+                ("cut", True, cut, aidx)]
+        if aidx is not None:
+            tenant, null = live & (aidx != 0), live & (aidx == 0)
+            runs += [("zero", True, kv.lengths, torch.zeros_like(aidx)),
+                     ("none", False, kv.lengths, None)]
+            row.update(proj=0.0, null_equal=True)
+            targets = [t for t in ("q", "k", "v", "o") if "lora_mt" in p["layers"][0]["attn"][t]]
+            moved_blocks = []
         x = layers.embed_tokens(p["embed"], tokens, model.dtype)
         for i, lp in enumerate(p["layers"]):
             h = layers.rms_norm(x, lp["norm1"]["w"], cfg.norm_eps)
+            if aidx is not None:
+                for t in targets:
+                    if t == "o":
+                        continue   # its input is the attention output, held below
+                    pr = {name: layers.apply_linear(lp["attn"][t], h, plain=is_plain,
+                                                    adapter_idx=idx)
+                          for name, is_plain, _, idx in runs if name != "cut"}
+                    row["proj"] = max(row["proj"], rel(pr["kernel"][live], pr["plain"][live]))
+                    scale = pr["plain"][live].float().abs().max()
+                    if bool(tenant.any()):
+                        moved = ((pr["zero"] - pr["plain"]).float().abs().amax(dim=1)[tenant]
+                                 / scale)
+                        row["proj_control"] = min(row.get("proj_control", float("inf")),
+                                                  moved.min().item())
+                    row["null_equal"] &= bool(torch.equal(pr["kernel"][null],
+                                                          pr["none"][null]))
             out = {}
-            for name, is_plain, lengths in (("kernel", False, kv.lengths),
-                                            ("plain", True, kv.lengths),
-                                            ("cut", True, cut)):
+            for name, is_plain, lengths, idx in runs:
                 out[name] = attn_mod.gqa_decode_paged(
                     lp["attn"], h, kv.k_pool[i].clone(), kv.v_pool[i].clone(),
                     kv.tables, kv.write_page, kv.write_off, lengths, pos, cfg,
-                    plain=is_plain)[live]
-            row["attn"] = max(row["attn"], rel(out["kernel"], out["plain"]))
-            row["control"] = min(row["control"], rel(out["cut"], out["plain"]))
+                    plain=is_plain, adapter_idx=idx)
+            row["attn"] = max(row["attn"], rel(out["kernel"][live], out["plain"][live]))
+            row["control"] = min(row["control"], rel(out["cut"][live], out["plain"][live]))
+            if aidx is not None and bool(tenant.any()):
+                # each tenant row's change, over the live rows' scale
+                moved_blocks.append(
+                    (out["zero"] - out["plain"]).float().abs().amax(dim=1)[tenant]
+                    / out["plain"][live].float().abs().max())
+            if aidx is not None:
+                row["null_equal"] &= bool(torch.equal(out["kernel"][null],
+                                                      out["none"][null]))
             full = torch.zeros_like(x)
-            full[live] = out["kernel"]
+            full[live] = out["kernel"][live]
             x = x + full
             h2 = layers.rms_norm(x, lp["norm2"]["w"], cfg.norm_eps)
-            f = layers.apply_ffn(lp["ffn"], h2, cfg.ffn_kind)
-            f_plain = layers.apply_ffn(lp["ffn"], h2, cfg.ffn_kind, plain=True)
+            f = layers.apply_ffn(lp["ffn"], h2, cfg.ffn_kind, adapter_idx=aidx)
+            f_plain = layers.apply_ffn(lp["ffn"], h2, cfg.ffn_kind, plain=True,
+                                       adapter_idx=aidx)
             row["ffn"] = max(row["ffn"], rel(f[live], f_plain[live]))
             x = x + f
+        if aidx is not None and moved_blocks:
+            moved = torch.stack(moved_blocks)          # (layers, tenant rows)
+            # the block check holds every layer, so a wrong kernel shows in
+            # the layer where the LoRA terms move a tenant row most: the gate
+            # reads, per tenant row, its largest change over the tick's
+            # layers; the smallest change in any one layer is only reported
+            row["attn_control_best_layer"] = moved.amax(dim=0).min().item()
+            row["attn_control_any_layer"] = moved.min().item()
         x = layers.rms_norm(x, p["final_norm"]["w"], cfg.norm_eps)
         logits = model._logits(p, x)
         row["logits"] = rel(logits[live, :cfg.vocab_size],
                             plain._logits(p, x)[live, :cfg.vocab_size])
         return logits, row
 
-    def decode_step(p, kv, tokens, pos):
-        walked, row = walk(p, kv, tokens, pos)
-        logits, kv = inner(p, kv, tokens, pos)
+    def decode_step(p, kv, tokens, pos, adapter_idx=None):
+        walked, row = walk(p, kv, tokens, pos, adapter_idx)
+        logits, kv = inner(p, kv, tokens, pos, adapter_idx)
         row["walk_is_step"] = bool(torch.equal(walked[kv.lengths > 0],
                                                logits[kv.lengths > 0]))
         rows.append(row)
@@ -435,6 +632,61 @@ def _stepwise_watch(torch, model, cfg):
 
     model.decode_step = decode_step
     return rows
+
+
+def _check_walk(rows, path: str, extra=()):
+    """Print the walk's worst values and fail on any bound it misses."""
+    keys = ("min_len", "attn", "ffn", "logits", "control") + tuple(extra)
+    worst = {k: max(r[k] for r in rows) for k in ("attn", "ffn", "logits")}
+    # the attention control is read where every live slot has more than one
+    # position
+    ctrl = min(r["control"] for r in rows if r["min_len"] > 1)
+    report = {"path": path, "ticks": len(rows), "max_rel_err": worst,
+              "tol": {"attn": BLOCK_TOL, "ffn": BLOCK_TOL, "logits": LOGITS_TOL},
+              "min_control_rel_change": ctrl, "control_margin": CONTROL_MARGIN,
+              "walk_is_step": all(r["walk_is_step"] for r in rows)}
+    if "proj_control" in extra:
+        with_t = [r for r in rows if "proj_control" in r]
+        report["max_rel_err"]["proj"] = max(r["proj"] for r in rows)
+        report["tol"]["proj"] = BLOCK_TOL
+        # gated: every layer's projections; each tenant row's attention
+        # block in its most-moved layer. Reported only: the weakest layer's
+        # attention block
+        report["min_proj_control_rel_change_every_layer"] = min(
+            r["proj_control"] for r in with_t)
+        report["min_attn_control_rel_change_best_layer"] = min(
+            r["attn_control_best_layer"] for r in with_t)
+        report["min_attn_control_rel_change_any_layer"] = min(
+            r["attn_control_any_layer"] for r in with_t)
+        report["null_rows_equal_no_adapter"] = all(r["null_equal"] for r in rows)
+    report["per_tick"] = [{k: r[k] for k in keys if k in r} for r in rows]
+    print("[identity] stepwise", json.dumps(report), flush=True)
+    if not report["walk_is_step"]:
+        raise AssertionError("the stepwise walk's logits differ from Model.decode_step's")
+    for k, tol in (("attn", BLOCK_TOL), ("ffn", BLOCK_TOL), ("logits", LOGITS_TOL)):
+        if worst[k] > tol:
+            raise AssertionError(f"{path}: {k}: kernel path differs from the plain path on "
+                                 f"the same input by {worst[k]:.3e} of its scale (tol {tol})")
+    if ctrl < CONTROL_MARGIN * BLOCK_TOL:
+        raise AssertionError(f"attention over one position moved an attention block by "
+                             f"only {ctrl:.3e} of its scale: the tolerance {BLOCK_TOL} "
+                             f"could not see a wrong attention kernel")
+    if "proj_control" in extra:
+        if report["max_rel_err"]["proj"] > BLOCK_TOL:
+            raise AssertionError(f"{path}: a targeted projection differs from the plain "
+                                 f"path by {report['max_rel_err']['proj']:.3e} of its scale")
+        for key, what in (("min_proj_control_rel_change_every_layer",
+                           "targeted projection in some layer"),
+                          ("min_attn_control_rel_change_best_layer",
+                           "attention block, in the layer where it moved most,")):
+            if report[key] < CONTROL_MARGIN * BLOCK_TOL:
+                raise AssertionError(
+                    f"dropping the tenants' LoRA terms moved a tenant row's {what} by only "
+                    f"{report[key]:.3e}: the tolerance {BLOCK_TOL} could not see a wrong "
+                    f"batched-LoRA kernel")
+        if not report["null_rows_equal_no_adapter"]:
+            raise AssertionError("an adapter-less row differs from the engine without "
+                                 "adapters")
 
 
 def identity(torch, cfg, params):
@@ -460,26 +712,7 @@ def identity(torch, cfg, params):
     (k_out, k_top2, rows), (p_out, _, _) = runs
 
     # every block and the logits on the same input and state, every tick
-    worst = {k: max(r[k] for r in rows) for k in ("attn", "ffn", "logits")}
-    # the control is read where every live slot has more than one position
-    ctrl = min(r["control"] for r in rows if r["min_len"] > 1)
-    print("[identity] stepwise", json.dumps({
-        "ticks": len(rows), "max_rel_err": worst,
-        "tol": {"attn": BLOCK_TOL, "ffn": BLOCK_TOL, "logits": LOGITS_TOL},
-        "min_control_rel_change": ctrl, "control_margin": CONTROL_MARGIN,
-        "walk_is_step": all(r["walk_is_step"] for r in rows),
-        "per_tick": [{k: r[k] for k in ("min_len", "attn", "ffn", "logits", "control")}
-                     for r in rows]}), flush=True)
-    if not all(r["walk_is_step"] for r in rows):
-        raise AssertionError("the stepwise walk's logits differ from Model.decode_step's")
-    for k, tol in (("attn", BLOCK_TOL), ("ffn", BLOCK_TOL), ("logits", LOGITS_TOL)):
-        if worst[k] > tol:
-            raise AssertionError(f"{k}: kernel path differs from the plain path on the "
-                                 f"same input by {worst[k]:.3e} of its scale (tol {tol})")
-    if ctrl < CONTROL_MARGIN * BLOCK_TOL:
-        raise AssertionError(f"attention over one position moved an attention block by "
-                             f"only {ctrl:.3e} of its scale: the tolerance {BLOCK_TOL} "
-                             f"could not see a wrong attention kernel")
+    _check_walk(rows, "paged")
 
     # greedy tokens of the two paths, each run on its own
     report = []
@@ -498,6 +731,31 @@ def identity(torch, cfg, params):
     print("[identity] greedy", json.dumps({"kernel_tokens": k_out, "plain_tokens": p_out,
                                            "near_ties": report, "tie_tol": TIE_TOL}),
           flush=True)
+
+
+def identity_adapters(torch, cfg, params):
+    """Phase 5, multi-tenant: the per-layer walk on the adapter engine, three
+    requests (two tenants and one without) sharing every tick."""
+    from repro_torch.launch.serve import build_adapters
+    from repro_torch.models.transformer import Model
+    from repro_torch.serving.api import RequestSpec
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.kv import PagedKV
+
+    model = Model(cfg, device="cuda")
+    serving = build_adapters(model, TENANTS, rank=RANK, slots=3, seed=0)
+    rows = _stepwise_watch(torch, model, cfg)
+    eng = ServeEngine(model, params, max_slots=3, max_len=MAX_LEN, seed=0,
+                      kv=PagedKV(page=PAGE), adapters=serving)
+    jobs = [([11, 2024, 7, 99, 5012, 3, 870, 41, 12, 9], "tenant-0"),
+            ([5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16], None),
+            ([300, 301, 302, 303, 304, 305, 306, 307], "tenant-3")]
+    reqs = [eng.submit(p, RequestSpec(max_new_tokens=8, adapter_id=t)) for p, t in jobs]
+    eng.run_until_drained()
+    if not all(r.state == "done" for r in reqs):
+        raise AssertionError("adapter identity requests did not complete")
+    _check_walk(rows, "adapters", extra=("proj", "proj_control", "attn_control_best_layer",
+                                         "attn_control_any_layer", "null_equal"))
 
 
 def main() -> int:
@@ -522,8 +780,8 @@ def main() -> int:
     # 2. build
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    _build.build(["ternary_matmul", "paged_flash_decode"])
-    print(f"[build] nvcc sm_90a, both sources in parallel: "
+    _build.build(["ternary_matmul", "paged_flash_decode", "batched_lora"])
+    print(f"[build] nvcc sm_90a, three sources in parallel: "
           f"{time.perf_counter() - t0:.1f}s {_build.BUILD_SECONDS}", flush=True)
     for name, log in _build.PTXAS.items():
         for line in log.splitlines():
@@ -531,6 +789,7 @@ def main() -> int:
                 print(f"[build] {name}: {line.strip()}", flush=True)
 
     from repro_torch.configs import get_config, reduce_config
+    from repro_torch.launch.serve import build_adapters
     from repro_torch.models.transformer import Model
     from repro_torch.serving.engine import ServeEngine
     from repro_torch.serving.kv import PagedKV
@@ -538,7 +797,8 @@ def main() -> int:
     cfg = reduce_config(get_config("bitnet-2b"), "full")
 
     # 3. kernels against their plain versions, timed
-    kernels = [bench_ternary_matmul(torch, cfg), bench_paged_decode(torch, cfg)]
+    kernels = [bench_ternary_matmul(torch, cfg), bench_paged_decode(torch, cfg),
+               bench_batched_lora(torch, cfg)]
     torch.cuda.empty_cache()
 
     # 4. full-width serving through the kernels
@@ -549,18 +809,36 @@ def main() -> int:
     print(f"[init] bitnet-2b full width, seeded random weights: "
           f"{time.perf_counter() - t0:.1f}s, "
           f"{torch.cuda.memory_allocated() / 1e6:.1f} MB on the card", flush=True)
+    # a. no adapters
     engine = ServeEngine(model, params, max_slots=SLOTS, max_len=MAX_LEN, seed=0,
                          kv=PagedKV(page=PAGE))
-    launches, tick_ms = serve(torch, cfg, engine)
-    profile_ticks(torch, engine, tick_ms)
+    by_path = {}
+    by_path["paged"], tick_ms = serve(torch, cfg, engine, "paged")
+    profile_ticks(torch, engine, tick_ms, "paged")
     del engine
+    # b. multi-tenant: 6 of 8 requests name one of 4 tenants, budget 2
+    serving = build_adapters(model, TENANTS, rank=RANK, slots=SLOTS, seed=0)
+    per_adapter = serving.registry.get("tenant-0").nbytes
+    if serving.cache.budget_bytes != BUDGET_TENANTS * per_adapter:
+        raise AssertionError(f"budget {serving.cache.budget_bytes} B is not "
+                             f"{BUDGET_TENANTS} tenants of {per_adapter} B")
+    engine = ServeEngine(model, params, max_slots=SLOTS, max_len=MAX_LEN, seed=0,
+                         kv=PagedKV(page=PAGE), adapters=serving)
+    tenants = ["tenant-0", None, "tenant-1", "tenant-2", None, "tenant-3",
+               "tenant-0", "tenant-2"]
+    by_path["adapters"], tick_ms = serve(torch, cfg, engine, "adapters", tenants)
+    profile_ticks(torch, engine, tick_ms, "adapters",
+                  ["tenant-0", None, "tenant-1", "tenant-0"])
+    del engine, serving
     torch.cuda.empty_cache()
 
     # 5. identity between the kernel and plain paths
     identity(torch, cfg, params)
+    identity_adapters(torch, cfg, params)
 
     for entry in kernels:
-        entry["launches"] = launches[entry["name"]]
+        entry["launches"] = by_path["adapters"][entry["name"]]
+        entry["launches_by_path"] = {p: n[entry["name"]] for p, n in by_path.items()}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,11 +1,11 @@
 """Parameter bridge from the reference: turn ``repro``'s serve-mode
-``Model.init`` pytree, handed over as numpy arrays, into the port's
-parameters. Numpy only, so it needs no JAX; the tests use it to give both
-sides the same numbers.
+``Model.init`` pytree and its multi-tenant adapter stacks, handed over as
+numpy arrays, into the port's tensors. Numpy only, so it needs no JAX; the
+tests use it to give both sides the same numbers.
 """
 from __future__ import annotations
 
-from typing import Any, Mapping, Optional, Union
+from typing import Any, Dict, Mapping, Optional, Union
 
 import numpy as np
 import torch
@@ -52,3 +52,16 @@ def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig,
     return {"embed": embed,
             "final_norm": _tree(tree["final_norm"], dev),
             "layers": [layer(i, stack) for i in range(n)]}
+
+
+def adapter_stacks_from_jax(pack: Mapping[str, Mapping[str, Any]],
+                            device: Optional[Union[str, torch.device]] = None
+                            ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """``pack``: the reference's ``AdapterServing.pack`` with numpy leaves,
+    target → ``{"a": (L, R+1, K/4, r) u8, "b": (L, R+1, r/4, N) u8,
+    "s": (L, R+1) f32}``. Returns the same stacks as the port's device
+    tensors, in the layout of its ``AdapterServing.pack`` (for
+    ``serving.adapters.runtime.install_stacks``)."""
+    dev = resolve_device(device)
+    return {target: {k: _tensor(st[k], dev) for k in ("a", "b", "s")}
+            for target, st in pack.items()}

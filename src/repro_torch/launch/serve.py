@@ -8,6 +8,12 @@ On the card, at the published width of bitnet-2b::
         --preset full --kv paged --page 64 --slots 4 --requests 8 \\
         --prompt-len 12 --max-new 16
 
+Multi-tenant adapters (one ternary base, many ternary QLoRA tenants on q
+and v, served through the batched-LoRA kernel)::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --adapters 4 \\
+        --adapter-rank 8 --adapter-budget-kb 64 --adapter-rate 0.8
+
 ``--device cpu`` runs the plain PyTorch path (use ``--preset tiny`` there).
 Prints one ``[serve] {...}`` JSON line of the engine stats.
 """
@@ -23,21 +29,55 @@ import torch
 
 from repro_torch.configs import get_config, reduce_config
 from repro_torch.models.transformer import Model
+from repro_torch.serving.adapters import (AdapterRegistry, AdapterServing,
+                                          AdapterSpec,
+                                          synthetic_adapter_stacks)
 from repro_torch.serving.api import RequestSpec, SamplingParams
 from repro_torch.serving.engine import ServeEngine
 from repro_torch.serving.kv import PagedKV
 
 
+def build_adapters(model: Model, n_adapters: int, *, rank: int = 8,
+                   budget_kb=None, slots: int = 4, seed: int = 0
+                   ) -> AdapterServing:
+    """``n_adapters`` synthetic tenants ``tenant-<i>`` on q and v (rank
+    ``rank``, alpha ``2·rank``) drawn from ``seed + 1``, behind an SRAM
+    budget of ``budget_kb`` KiB (default: half the tenants fit, at least
+    two), as the reference CLI sets them up."""
+    cfg = model.cfg
+    spec = AdapterSpec(rank=rank, alpha=2.0 * rank, targets=("q", "v"))
+    registry = AdapterRegistry(spec)
+    rng = np.random.default_rng(seed + 1)
+    for i in range(n_adapters):
+        registry.register(f"tenant-{i}", synthetic_adapter_stacks(
+            rng, cfg, spec, cfg.num_layers))
+    per_adapter = registry.get("tenant-0").nbytes
+    budget = (int(budget_kb * 1024) if budget_kb
+              else per_adapter * max(2, n_adapters // 2))
+    print(f"[serve] {n_adapters} tenants registered ({per_adapter}B each, "
+          f"SRAM budget {budget}B)")
+    return AdapterServing(model, registry, budget_bytes=budget,
+                          max_resident=max(2, min(n_adapters, slots * 2)))
+
+
 def build_engine(arch: str, preset: str, *, slots: int, max_len: int,
                  page: int = 64, n_pages=None, seed: int = 0, device=None,
-                 plain: bool = False) -> ServeEngine:
-    """A seeded model at ``preset`` size behind a paged-KV engine."""
+                 plain: bool = False, n_adapters: int = 0,
+                 adapter_rank: int = 8, adapter_budget_kb=None
+                 ) -> ServeEngine:
+    """A seeded model at ``preset`` size behind a paged-KV engine, with
+    ``n_adapters`` synthetic tenants when that is above 0."""
     cfg = reduce_config(get_config(arch), preset)
     model = Model(cfg, device=device, plain=plain)
     gen = torch.Generator(device=model.device).manual_seed(seed)
     params = model.init(gen)
+    adapters = (build_adapters(model, n_adapters, rank=adapter_rank,
+                               budget_kb=adapter_budget_kb, slots=slots,
+                               seed=seed)
+                if n_adapters > 0 else None)
     return ServeEngine(model, params, max_slots=slots, max_len=max_len,
-                       seed=seed, kv=PagedKV(page=page, n_pages=n_pages))
+                       seed=seed, kv=PagedKV(page=page, n_pages=n_pages),
+                       adapters=adapters)
 
 
 def main(argv=None) -> int:
@@ -57,6 +97,14 @@ def main(argv=None) -> int:
     ap.add_argument("--page", type=int, default=64)
     ap.add_argument("--n-pages", type=int, default=None,
                     help="pool capacity (default: slots * max_len / page)")
+    ap.add_argument("--adapters", type=int, default=0,
+                    help="register this many synthetic QLoRA tenants and "
+                         "serve them multi-tenant (0 = single personality)")
+    ap.add_argument("--adapter-rank", type=int, default=8)
+    ap.add_argument("--adapter-budget-kb", type=float, default=None,
+                    help="adapter SRAM budget (default: half the tenants fit)")
+    ap.add_argument("--adapter-rate", type=float, default=1.0,
+                    help="fraction of requests that carry an adapter_id")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs "
@@ -67,7 +115,9 @@ def main(argv=None) -> int:
     eng = build_engine(args.arch, args.preset, slots=args.slots,
                        max_len=args.max_len, page=args.page,
                        n_pages=args.n_pages, seed=args.seed,
-                       device=args.device)
+                       device=args.device, n_adapters=args.adapters,
+                       adapter_rank=args.adapter_rank,
+                       adapter_budget_kb=args.adapter_budget_kb)
     rng = np.random.default_rng(args.seed)
     vocab = eng.cfg.vocab_size
     reqs = []
@@ -75,8 +125,12 @@ def main(argv=None) -> int:
         plen = int(rng.integers(max(2, args.prompt_len // 2),
                                 args.prompt_len + 1))
         prompt = [int(t) for t in rng.integers(0, min(vocab, 1000), size=plen)]
+        adapter_id = None
+        if args.adapters > 0 and rng.random() < args.adapter_rate:
+            adapter_id = f"tenant-{i % args.adapters}"
         reqs.append(eng.submit(
-            prompt, RequestSpec(max_new_tokens=args.max_new, priority=i % 2),
+            prompt, RequestSpec(max_new_tokens=args.max_new, priority=i % 2,
+                                adapter_id=adapter_id),
             SamplingParams(temperature=args.temperature, top_p=args.top_p)))
     t0 = time.time()
     stats = eng.run_until_drained()
@@ -98,6 +152,8 @@ def main(argv=None) -> int:
         "ttft_p99_ms": round(float(np.quantile(ttfts, 0.99)) * 1e3, 1),
         "latency_p50_ms": round(float(np.median(lats)) * 1e3, 1),
     }
+    if eng.adapters is not None:
+        out["adapters"] = eng.adapters.stats()
     print("[serve]", json.dumps(out))
     return 0
 

@@ -10,6 +10,7 @@ runs the paged flash-decode kernel on the block tables.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -68,16 +69,19 @@ def scatter_tokens(pool: torch.Tensor, page_ids: torch.Tensor,
 
 
 def _project_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig,
-                 positions: torch.Tensor, *, plain: bool = False):
+                 positions: torch.Tensor, *, plain: bool = False,
+                 adapter_idx: Optional[torch.Tensor] = None):
     """x (..., D) → q (..., H, D), k/v (..., Hkv, D) with RoPE applied.
-    The reference's qk-norm and sharding constraints are absent: bitnet has
-    neither."""
+    ``adapter_idx`` (B,) adds each row's multi-tenant LoRA term on the
+    projections that carry one. The reference's qk-norm and sharding
+    constraints are absent: bitnet has neither."""
     b = x.shape[:-1]
-    q = layers.apply_linear(p["q"], x, plain=plain).reshape(
+    kw = dict(plain=plain, adapter_idx=adapter_idx)
+    q = layers.apply_linear(p["q"], x, **kw).reshape(
         *b, cfg.num_heads, cfg.head_dim)
-    k = layers.apply_linear(p["k"], x, plain=plain).reshape(
+    k = layers.apply_linear(p["k"], x, **kw).reshape(
         *b, cfg.num_kv_heads, cfg.head_dim)
-    v = layers.apply_linear(p["v"], x, plain=plain).reshape(
+    v = layers.apply_linear(p["v"], x, **kw).reshape(
         *b, cfg.num_kv_heads, cfg.head_dim)
     q = layers.apply_rope(q, positions, cfg.rope_theta)
     k = layers.apply_rope(k, positions, cfg.rope_theta)
@@ -88,14 +92,16 @@ def gqa_decode_paged(p: Params, x: torch.Tensor, k_pool_l: torch.Tensor,
                      v_pool_l: torch.Tensor, tables: torch.Tensor,
                      write_page: torch.Tensor, write_off: torch.Tensor,
                      lengths: torch.Tensor, pos: torch.Tensor,
-                     cfg: ModelConfig, *, plain: bool = False
+                     cfg: ModelConfig, *, plain: bool = False,
+                     adapter_idx: Optional[torch.Tensor] = None
                      ) -> torch.Tensor:
     """One-token GQA decode off one layer of the paged pool. Scatters the
     new token's k/v into its page (in place), then runs paged decode
-    attention. x: (B, D); pools (N+1, Hkv, page, D). Returns (B, D)."""
+    attention. x: (B, D); pools (N+1, Hkv, page, D); ``adapter_idx`` (B,)
+    as in :func:`_project_qkv`. Returns (B, D)."""
     bsz = x.shape[0]
     q, k_new, v_new = _project_qkv(p, x[:, None], cfg, pos[:, None],
-                                   plain=plain)
+                                   plain=plain, adapter_idx=adapter_idx)
     scatter_tokens(k_pool_l, write_page, write_off,
                    kv_encode(k_new[:, 0], k_pool_l.dtype))
     scatter_tokens(v_pool_l, write_page, write_off,
@@ -109,4 +115,5 @@ def gqa_decode_paged(p: Params, x: torch.Tensor, k_pool_l: torch.Tensor,
         out = fd_ops.paged_decode_attention(q, k_pool_l, v_pool_l, tables,
                                             lengths, KV_CACHE_SCALE)
     out = out.reshape(bsz, cfg.q_dim).to(x.dtype)
-    return layers.apply_linear(p["o"], out, plain=plain)
+    return layers.apply_linear(p["o"], out, plain=plain,
+                               adapter_idx=adapter_idx)

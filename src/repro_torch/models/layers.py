@@ -5,17 +5,21 @@ the tied logits.
 Parameters are plain dicts of tensors with the reference's names
 (``packed``/``scale`` per linear, ``packed_rows``/``scale`` for the
 embedding, ``w`` per norm). Every linear, and the tied logits, goes through
-the ternary-matmul kernel on the card (``kernels/ternary_matmul``); with
-``plain=True`` the same call runs the kernel's plain version instead, which
-is also what a CPU tensor gets.
+the ternary-matmul kernel on the card (``kernels/ternary_matmul``), and a
+projection that carries a multi-tenant adapter stack (``lora_mt``) adds the
+batched-LoRA kernel's output (``kernels/batched_lora``); with ``plain=True``
+the same calls run the kernels' plain versions instead, which is also what a
+CPU tensor gets.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 from repro_torch.core import ternary
+from repro_torch.kernels.batched_lora import ops as blora_ops
+from repro_torch.kernels.batched_lora.ref import batched_lora_ref
 from repro_torch.kernels.ternary_matmul import ops as tm_ops
 from repro_torch.kernels.ternary_matmul.ref import ternary_matmul_ref
 
@@ -54,14 +58,29 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
-def apply_linear(p: Params, x: torch.Tensor, *,
-                 plain: bool = False) -> torch.Tensor:
+def apply_linear(p: Params, x: torch.Tensor, *, plain: bool = False,
+                 adapter_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Serve-mode linear: ``x @ unpack2(p["packed"]) * p["scale"]``,
-    accumulated in f32 and cast to x's type (``layers.py:127-163`` of the
-    reference, without its multi-tenant adapter branch). The reference
-    decodes the weight with XLA ops; here the kernel reads the 2-bit codes."""
+    accumulated in f32 and cast to x's type, then, where ``p`` carries a
+    ``lora_mt`` stack and ``adapter_idx`` (B,) is given, plus each row's
+    multi-tenant LoRA term cast to that type (``layers.py:127-171`` of the
+    reference, in its rounding order). The reference decodes the base weight
+    with XLA ops; here the kernel reads the 2-bit codes."""
     fn = ternary_matmul_ref if plain else tm_ops.ternary_matmul
-    return fn(x, p["packed"], p["scale"], out_dtype=x.dtype)
+    y = fn(x, p["packed"], p["scale"], out_dtype=x.dtype)
+    if adapter_idx is not None and "lora_mt" in p:
+        y = y + _multi_tenant_lora(p["lora_mt"], x, adapter_idx,
+                                   plain=plain).to(y.dtype)
+    return y
+
+
+def _multi_tenant_lora(mt: Params, x: torch.Tensor, adapter_idx: torch.Tensor,
+                       *, plain: bool = False) -> torch.Tensor:
+    """Per-row gathered ternary-LoRA term (f32) from one layer's adapter
+    stacks ``a (R+1, K/4, r)``, ``b (R+1, r/4, N)``, ``s (R+1,)``. Rows whose
+    index is 0 hit the null adapter and contribute exactly 0."""
+    fn = batched_lora_ref if plain else blora_ops.batched_lora
+    return fn(x, mt["a"], mt["b"], mt["s"], adapter_idx)
 
 
 ACTIVATIONS = {
@@ -72,14 +91,16 @@ ACTIVATIONS = {
 
 
 def apply_ffn(p: Params, x: torch.Tensor, kind: str, *,
-              plain: bool = False) -> torch.Tensor:
-    up = apply_linear(p["up"], x, plain=plain)
+              plain: bool = False,
+              adapter_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    kw = dict(plain=plain, adapter_idx=adapter_idx)
+    up = apply_linear(p["up"], x, **kw)
     if kind == "swiglu":
-        gate = apply_linear(p["gate"], x, plain=plain)
+        gate = apply_linear(p["gate"], x, **kw)
         h = torch.nn.functional.silu(gate.float()).to(up.dtype) * up
     else:
         h = ACTIVATIONS[kind if kind in ACTIVATIONS else "gelu"](up)
-    return apply_linear(p["down"], h, plain=plain)
+    return apply_linear(p["down"], h, **kw)
 
 
 def pack_rows(t: torch.Tensor) -> torch.Tensor:

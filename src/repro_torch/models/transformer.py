@@ -105,21 +105,27 @@ class Model:
     # -- decode ----------------------------------------------------------------
     @torch.no_grad()
     def decode_step(self, p: Params, state: attn_mod.PagedKVState,
-                    tokens: torch.Tensor, pos: torch.Tensor
+                    tokens: torch.Tensor, pos: torch.Tensor,
+                    adapter_idx: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, attn_mod.PagedKVState]:
         """One token for every slot over a :class:`PagedKVState`: per layer,
         the new token's k/v go into their pages (in place) and attention
         reads the pages through the block tables. tokens/pos: (B,) int.
-        Returns (logits (B, V) f32, the same state with updated pools)."""
+        ``adapter_idx`` (B,) int32 selects each slot's resident multi-tenant
+        adapter on the projections whose params carry a ``lora_mt`` stack
+        (``serving/adapters/runtime.py``); ``None`` runs the base model
+        alone. Returns (logits (B, V) f32, the same state with updated
+        pools)."""
         cfg, plain = self.cfg, self.plain
+        kw = dict(plain=plain, adapter_idx=adapter_idx)
         x = layers.embed_tokens(p["embed"], tokens, self.dtype)
         for i, lp in enumerate(p["layers"]):
             h = layers.rms_norm(x, lp["norm1"]["w"], cfg.norm_eps)
             x = x + attn_mod.gqa_decode_paged(
                 lp["attn"], h, state.k_pool[i], state.v_pool[i], state.tables,
                 state.write_page, state.write_off, state.lengths, pos, cfg,
-                plain=plain)
+                **kw)
             h2 = layers.rms_norm(x, lp["norm2"]["w"], cfg.norm_eps)
-            x = x + layers.apply_ffn(lp["ffn"], h2, cfg.ffn_kind, plain=plain)
+            x = x + layers.apply_ffn(lp["ffn"], h2, cfg.ffn_kind, **kw)
         x = layers.rms_norm(x, p["final_norm"]["w"], cfg.norm_eps)
         return self._logits(p, x), state

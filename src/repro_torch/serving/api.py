@@ -52,5 +52,5 @@ class RequestSpec:
     eos_id: Optional[int] = None
     priority: int = 1                 # lower = more urgent (0: interactive)
     deadline_ms: Optional[float] = None
-    adapter_id: Optional[str] = None  # tenant fine-tune (not served yet)
+    adapter_id: Optional[str] = None  # tenant fine-tune (serving/adapters)
     stream_cb: Optional[Callable] = None   # cb(req, token) per output token

@@ -14,6 +14,16 @@ runs).
     its prompt's pages; when the pool runs dry mid-decode the scheduler names
     a victim, whose pages are released and which re-enters the queue with
     its generated tokens as prompt.
+  * **multi-tenant adapters** (``adapters=`` an
+    :class:`~repro_torch.serving.adapters.AdapterServing`): a request may
+    name an ``adapter_id``, a frozen ternary QLoRA fine-tune from the
+    registry. Resident adapters sit in device stacks; each tick sends one
+    per-slot ``adapter_idx`` vector (0 = no adapter) into
+    ``Model.decode_step``, whose targeted projections add each row's LoRA
+    term through the batched-LoRA kernel. Admission prefers requests whose
+    adapter is already resident (never against priority or deadline order),
+    and the SRAM-budget cache pins an adapter while a request of it is in
+    flight; preemption and completion unpin.
   * **sampling** per slot from the request's ``SamplingParams``: greedy,
     temperature, top-k and top-p; seeded requests draw from a
     ``torch.Generator`` keyed by (seed, tokens generated), so they reproduce
@@ -21,8 +31,9 @@ runs).
     threefry bits).
 
 Not in this slice (the reference has them): dense KV, batched and chunked
-prefill, adapters, the prefix cache, speculative decoding, cancel and
-deadline expiry, tiered memory, tracing and the split-tick async pipeline.
+prefill, the prefix cache, speculative decoding, cancel and deadline expiry,
+tiered memory (and with it adapter prefetch), tracing and the split-tick
+async pipeline.
 Deadlines still order the queue (EDF within a priority class).
 """
 from __future__ import annotations
@@ -35,6 +46,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.transformer import Model
+from repro_torch.serving.adapters import AdapterServing
 from repro_torch.serving.api import RequestSpec, SamplingParams
 from repro_torch.serving.gateway.scheduler import Scheduler
 from repro_torch.serving.kv import KVBackend, PagedKV
@@ -96,6 +108,10 @@ class Request:
         return self.spec.priority
 
     @property
+    def adapter_id(self) -> Optional[str]:
+        return self.spec.adapter_id
+
+    @property
     def ttft_s(self) -> float:
         return self.t_first - self.t_submit
 
@@ -121,10 +137,16 @@ class ServeEngine:
     def __init__(self, model: Model, params, *, max_slots: int = 8,
                  max_len: int = 1024, seed: int = 0,
                  kv: Optional[KVBackend] = None,
-                 scheduler: Optional[Scheduler] = None):
+                 scheduler: Optional[Scheduler] = None,
+                 adapters: Optional[AdapterServing] = None):
         self.model = model
         self.cfg = model.cfg
         self.params = params
+        self.adapters = adapters
+        # the params the decode runs on: with adapters, the base params plus
+        # views of the runtime's device stacks (uploads write them in place)
+        self._run_params = (params if adapters is None
+                            else adapters.install(params))
         self.device = model.device
         self.max_slots = max_slots
         self.max_len = max_len
@@ -137,6 +159,9 @@ class ServeEngine:
         self.pos = np.zeros((max_slots,), np.int32)       # next write position
         self.slot_req: List[Optional[Request]] = [None] * max_slots
         self.pending_prompt: List[List[int]] = [[] for _ in range(max_slots)]
+        self.slot_adapter = np.zeros((max_slots,), np.int32)  # device slot (0=none)
+        # version-resolved cache key each slot pinned (released exactly)
+        self.slot_adapter_key: List[Optional[str]] = [None] * max_slots
         self.stats = EngineStats()
         self._uid = 0
 
@@ -186,16 +211,20 @@ class ServeEngine:
     # -- public API ---------------------------------------------------------------
     def submit(self, prompt: List[int], spec: Optional[RequestSpec] = None,
                sampling: Optional[SamplingParams] = None) -> Request:
-        """Enqueue a request. One naming an ``adapter_id`` is rejected: this
-        engine serves no adapters (the reference rejects it the same way
-        when it has no adapter runtime)."""
+        """Enqueue a request. One naming an ``adapter_id`` that this engine
+        could never serve (no adapter runtime, an unknown tenant, or an
+        adapter larger than the whole budget) is rejected."""
         if not prompt:
             raise ValueError("a prompt needs at least one token")
         self._uid += 1
         req = Request(self._uid, list(prompt), spec=spec or RequestSpec(),
                       sampling=sampling or SamplingParams(),
                       t_submit=time.time())
-        if req.spec.adapter_id is not None or not self.scheduler.push(req):
+        if req.adapter_id is not None and not (
+                self.adapters is not None
+                and self.adapters.servable(req.adapter_id)):
+            req.state = "rejected"
+        elif not self.scheduler.push(req):
             req.state = "rejected"
         return req
 
@@ -242,7 +271,22 @@ class ServeEngine:
         feed, remaining_new = self._clamped_feed(req)
         return self.kv.pages_for(min(len(feed) + remaining_new, self.max_len))
 
+    def _adapter_warm(self, req: Request) -> bool:
+        """Affinity predicate: serving ``req`` costs no adapter load (no
+        adapter, or already resident)."""
+        return (self.adapters is None or req.adapter_id is None
+                or self.adapters.is_resident(req.adapter_id))
+
+    def _adapter_ready(self, req: Request) -> bool:
+        """Could ``req``'s adapter be made resident now (evicting only
+        unpinned adapters)?"""
+        return self.adapters is None or self.adapters.can_serve(req.adapter_id)
+
     def _can_admit(self, req: Request) -> bool:
+        # every budget byte pinned by in-flight adapters: wait for a slot to
+        # drain and unpin one
+        if not self._adapter_ready(req):
+            return False
         # a request whose final context exceeds the whole pool would only
         # fail mid-flight — it stays queued instead
         if self._pages_lifetime(req) > self.kv.capacity_pages:
@@ -254,7 +298,8 @@ class ServeEngine:
         for slot in self._free_slots():
             if not len(self.scheduler):
                 break
-            req = self.scheduler.pop_next(self._can_admit)
+            req = self.scheduler.pop_next(self._can_admit,
+                                          prefer=self._adapter_warm)
             if req is None and self.kv.supports_paging:
                 req = self._admit_under_pressure()
             if req is None:
@@ -267,7 +312,8 @@ class ServeEngine:
         admissible (otherwise the victim is re-admitted next tick and no
         progress is made)."""
         head = self.scheduler.peek(
-            lambda r: self._pages_lifetime(r) <= self.kv.capacity_pages)
+            lambda r: self._pages_lifetime(r) <= self.kv.capacity_pages
+            and self._adapter_ready(r))
         if head is None:
             return None
         needed = self._pages_needed(head)
@@ -285,11 +331,19 @@ class ServeEngine:
                 pairs = [(i, r) for i, r in pairs if i != slot]
             for slot in victims:
                 self._preempt(slot)
-        return self.scheduler.pop_next(self._can_admit)
+        return self.scheduler.pop_next(self._can_admit,
+                                       prefer=self._adapter_warm)
 
     def _place(self, slot: int, req: Request, now: float) -> None:
         req.state = "running"
         req.t_admit = now
+        if self.adapters is not None and req.adapter_id is not None:
+            # load (evicting LRU unpinned if needed) and pin for the slot's
+            # life; the pin is version-resolved, so a re-register while the
+            # request streams does not move its weights
+            dev_slot, key = self.adapters.acquire_versioned(req.adapter_id)
+            self.slot_adapter[slot] = dev_slot
+            self.slot_adapter_key[slot] = key
         feed, remaining_new = self._clamped_feed(req)
         req.max_new_tokens = len(req.output) + remaining_new
         self.slot_req[slot] = req
@@ -326,6 +380,10 @@ class ServeEngine:
         self.scheduler.requeue(req)
 
     def _release_slot(self, slot: int) -> None:
+        if self.slot_adapter_key[slot] is not None:
+            self.adapters.release_key(self.slot_adapter_key[slot])
+            self.slot_adapter_key[slot] = None
+        self.slot_adapter[slot] = 0
         self.kv.release(slot)
         self.slot_req[slot] = None
         self.pending_prompt[slot] = []
@@ -385,9 +443,13 @@ class ServeEngine:
             tokens[i] = self._fed_token(i)
         state = self.kv.decode_state(active, self.pos)
         dev = self.device
+        # one per-slot adapter index vector per tick; None keeps the tick
+        # exactly the engine without adapters
+        aidx = (None if self.adapters is None
+                else torch.from_numpy(self.slot_adapter.copy()).to(dev))
         logits, new_state = self.model.decode_step(
-            self.params, state, torch.from_numpy(tokens).to(dev),
-            torch.from_numpy(self.pos.copy()).to(dev))
+            self._run_params, state, torch.from_numpy(tokens).to(dev),
+            torch.from_numpy(self.pos.copy()).to(dev), aidx)
         self.kv.commit(new_state, active, self.pos)
         nxt = self._sample_fn(logits, *self._sampling_vectors(active)).tolist()
         self.stats.ticks += 1

@@ -8,6 +8,8 @@ import pytest
 import torch
 
 from repro_torch.core import ternary
+from repro_torch.kernels.batched_lora import ops as bl_ops
+from repro_torch.kernels.batched_lora.ref import batched_lora_ref
 from repro_torch.kernels.flash_decode import ops as fd_ops
 from repro_torch.kernels.flash_decode.paged import paged_flash_decode_ref
 from repro_torch.kernels.ternary_matmul import ops as tm_ops
@@ -87,6 +89,71 @@ def test_paged_decode_kernel_vs_plain(cuda, kv_dtype, q_dtype):
     assert torch.isfinite(got).all() and not got[2].any()
 
 
+def _lora_stacks(n_adapters, k, r, n, seed):
+    """Random packed A/B codes and positive scales; slot 0 the null adapter
+    (zero codes, zero scale), as the adapter runtime keeps it."""
+    g = np.random.default_rng(seed)
+    t_a = g.integers(-1, 2, size=(n_adapters, k, r)).astype(np.int8)
+    t_b = g.integers(-1, 2, size=(n_adapters, r, n)).astype(np.int8)
+    t_a[0] = 0
+    t_b[0] = 0
+    s = g.uniform(0.01, 0.1, size=n_adapters).astype(np.float32)
+    s[0] = 0.0
+    return (ternary.pack2(torch.from_numpy(t_a)), ternary.pack2(torch.from_numpy(t_b)),
+            torch.from_numpy(s))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,k,r,n", [
+    (4, 320, 8, 256),                  # tiny preset: q and v (N = 256 both)
+    (4, 2560, 8, 2560), (4, 2560, 8, 640),   # full width: q, v
+    (6, 2560, 16, 1001), (3, 6912, 64, 2560), (5, 64, 4, 128),
+])
+def test_batched_lora_kernel_vs_plain(cuda, rows, k, r, n, dtype):
+    """Kernel #3 against its plain version on the same inputs, within 1e-5
+    of the plain output's max |value| (f32 sums in another order; x is read
+    as given in both). Row 1 is a null row: exact zeros. Control: the plain
+    output for the wrong tenants (indices rotated) is off by far more."""
+    a, b, s = _lora_stacks(5, k, r, n, seed=k + n + r)
+    x = torch.from_numpy(np.random.default_rng(rows).normal(size=(rows, k)).astype(np.float32))
+    idx = torch.tensor([3, 0, 1, 4, 2, 1][:rows], dtype=torch.int32)
+    x, a, b, s, idx = (t.to(cuda) for t in (x.to(dtype), a, b, s, idx))
+    before = bl_ops.launches.n
+    got = bl_ops.batched_lora(x, a, b, s, idx)
+    torch.cuda.synchronize()
+    assert bl_ops.launches.n == before + 1 and got.dtype == torch.float32
+    want = batched_lora_ref(x, a, b, s, idx)
+    tol = 1e-5 * want.abs().max().item()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=tol)
+    assert torch.equal(got[1], torch.zeros_like(got[1]))
+    tenants = idx != 0
+    wrong = batched_lora_ref(x, a, b, s, torch.where(tenants, idx % 4 + 1, idx))
+    assert ((got - wrong).abs().amax(dim=1)[tenants] > 100 * tol).all()
+
+
+def test_batched_lora_kernel_rows_independent_and_3d(cuda):
+    """Each row depends only on its own index (a row computed in a mixed
+    batch equals it computed alone, bit for bit); a (B, S, K) x runs as
+    B·S rows with each row's index; an index outside [0, R) gives NaN."""
+    a, b, s = (t.to(cuda) for t in _lora_stacks(4, 2560, 8, 640, seed=1))
+    x = torch.from_numpy(np.random.default_rng(2).normal(size=(4, 3, 2560)).astype(np.float32))
+    x = x.to(cuda, torch.bfloat16)
+    idx = torch.tensor([2, 0, 3, 1], dtype=torch.int32, device=cuda)
+    mixed = bl_ops.batched_lora(x[:, 0], a, b, s, idx)
+    for row in range(4):
+        solo = bl_ops.batched_lora(x[row:row + 1, 0], a, b, s, idx[row:row + 1])
+        assert torch.equal(mixed[row], solo[0])
+    got3 = bl_ops.batched_lora(x, a, b, s, idx)
+    assert got3.shape == (4, 3, 640)
+    want3 = batched_lora_ref(x, a, b, s, idx)
+    torch.testing.assert_close(got3, want3, rtol=1e-5, atol=1e-5 * want3.abs().max().item())
+    torch.testing.assert_close(got3[:, 0], mixed, rtol=0, atol=0)
+    bad = bl_ops.batched_lora(x[:, 0], a, b, s, torch.tensor([1, 7, -1, 0], dtype=torch.int32,
+                                                             device=cuda))
+    torch.cuda.synchronize()
+    assert torch.isnan(bad[1:3]).all() and torch.isfinite(bad[[0, 3]]).all()
+
+
 def test_tiny_model_kernels_vs_plain(cuda):
     """The tiny preset on the card: a decode step through both kernels
     against the plain path on the same state (logits within 1e-2 of their
@@ -117,3 +184,28 @@ def test_tiny_model_kernels_vs_plain(cuda):
     want, _ = eng.model.decode_step(eng.params, state, tok, pos)
     scale = want[0].abs().max().item()
     torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-2 * scale)
+
+
+def test_tiny_engine_with_adapters_through_kernel(cuda):
+    """The tiny preset with three tenants on the card: every tick of the
+    adapter engine launches kernel #3 once per targeted projection (2 per
+    layer), tenant and adapter-less requests complete, and the adapter-less
+    request's tokens equal those of an engine without adapters."""
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.serving.api import RequestSpec
+
+    kw = dict(slots=3, max_len=64, page=8, seed=0, device="cuda")
+    outs = []
+    for n_adapters in (0, 3):
+        eng = build_engine("bitnet-2b", "tiny", n_adapters=n_adapters, **kw)
+        jobs = [([3, 14, 15, 92], None), ([65, 35], "tenant-0"), ([8, 9, 7], "tenant-2")]
+        if not n_adapters:
+            jobs = jobs[:1]
+        bl, ticks = bl_ops.launches.n, eng.stats.ticks
+        reqs = [eng.submit(p, RequestSpec(max_new_tokens=6, adapter_id=t)) for p, t in jobs]
+        eng.run_until_drained()
+        assert all(r.state == "done" and len(r.output) == 6 for r in reqs)
+        per_tick = 2 * eng.cfg.num_layers if n_adapters else 0
+        assert bl_ops.launches.n - bl == per_tick * (eng.stats.ticks - ticks)
+        outs.append(reqs[0].output)
+    assert outs[0] == outs[1]

@@ -35,7 +35,8 @@ def test_no_jax_or_reference_imports(path):
 
 def test_port_files_found():
     names = {p.name for p in PORT_FILES}
-    assert {"engine.py", "ternary.py", "ops.py", "paged.py", "chip_smoke.py"} <= names
+    assert {"engine.py", "ternary.py", "ops.py", "paged.py", "chip_smoke.py", "qlora.py",
+            "registry.py", "cache.py", "runtime.py", "from_checkpoint.py"} <= names
 
 
 def test_entry_points_need_the_card_or_cpu():
