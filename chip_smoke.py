@@ -14,7 +14,7 @@ of which ends the run with a non-zero exit and no result line:
    decode tick gives it (4 slots), held against its plain PyTorch version
    on the same inputs with the stated tolerance, and timed with CUDA events
    beside the plain version, one PyTorch library call, and its bound;
-4. serving, two paths, each with the launch counts zeroed just before it
+4. serving, three paths, each with the launch counts zeroed just before it
    and read just after, every logit checked finite:
    a. ``ServeEngine`` over ``PagedKV`` (page 64, 4 slots) at full width with
       seeded random weights, 8 greedy requests of 12-32 prompt tokens and 16
@@ -24,6 +24,9 @@ of which ends the run with a non-zero exit and no result line:
       requests of which 6 name a tenant, so that adapter-less and tenant
       rows share ticks and tenants are evicted and pinned; kernel #3
       launches once per targeted projection and tick (60);
+   c. the engine over ``DenseKV`` (the contiguous fp8 cache of max_len
+      positions per slot, the engine's default), the requests of pass a:
+      kernel #4 launches once per layer and tick (30), kernel #2 never;
 5. identity: two greedy requests through the kernels; at every tick, every
    layer's attention and FFN block and the logits run through the kernels
    and through the plain versions (``plain=True``) on the same input and a
@@ -31,18 +34,22 @@ of which ends the run with a non-zero exit and no result line:
    cuts attention to one position, to show the tolerance is far below what
    a wrong attention moves); then the same requests through the plain
    versions alone, greedy tokens equal over 8 steps except at a reported
-   near-tie. Then the same per-layer walk on the adapter engine with a
-   per-slot index mixing tenants and 0: the kernel path's targeted
-   projections and attention blocks within the tolerance of the plain
-   path's; a control with every index set to 0 moves each tenant row's
-   targeted projections in every layer, and its attention block in the
-   layer where it moves most, by many tolerances; null rows equal the
-   engine without adapters bit for bit.
+   near-tie. All of that once over the paged pool and once over the dense
+   cache, and the greedy tokens of the dense and paged kernel paths equal
+   except at a reported near-tie. Then the same per-layer walk on the
+   paged adapter engine with a per-slot index mixing tenants and 0: the
+   kernel path's targeted projections and attention blocks within the
+   tolerance of the plain path's; a control with every index set to 0
+   moves each tenant row's targeted projections in every layer, and its
+   attention block in the layer where it moves most, by many tolerances;
+   null rows equal the engine without adapters bit for bit.
 
-The line before the last is ``{"kernels": [...]}``: each kernel's
-``launches`` is its count in pass 4b, this slice's main path, which runs
-all three kernels; ``launches_by_path`` has the count of each pass. The
-last line is ``{"ok": true, "device": {...}}``.
+Two lines before the last is ``{"kernels": [...]}``: the ``launches`` of
+kernels #1-#3 are their counts in pass 4b (multi-tenant paged serving,
+which runs all three), that of kernel #4 its count in pass 4c (dense
+serving, the only path that runs it); ``launches_by_path`` has each
+kernel's count in every pass. Then the card's name and power limit as
+``nvidia-smi`` gives them, and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -250,16 +257,20 @@ def bench_paged_decode(torch, cfg):
     plain_ms, _ = _time_ms(
         lambda q_, kp_, vp_, t_, l_, s_: paged_flash_decode_ref(
             q_.reshape(SLOTS, hkv, -1, d), kp_, vp_, t_, l_, s_), args[:2], reps=10)
-    # library yardstick: SDPA on a pre-gathered bf16 view of the same pages
+    # library yardstick: SDPA on pre-gathered bf16 views of the same pages,
+    # as many copies as the kernel's timing cycles through, so neither reads
+    # from a warm L2
     s_len = n_p * PAGE
     mask = (torch.arange(s_len, device=dev)[None] < lengths[:, None])[:, None, None, :]
     views = []
-    for kp_, vp_ in pools[:2]:
+    for i in range(_copies(4 * SLOTS * hkv * s_len * d)):
+        kp_, vp_ = pools[i % len(pools)]
         kv = [(p[tables.long()].to(torch.bfloat16) * KV_CACHE_SCALE)
               .permute(0, 2, 1, 3, 4).reshape(SLOTS, hkv, s_len, d) for p in (kp_, vp_)]
         views.append((q[:, :, None], kv[0], kv[1]))
     lib_ms, lib_wall = _time_ms(lambda q_, k_, v_: F.scaled_dot_product_attention(
-        q_, k_, v_, attn_mask=mask, enable_gqa=True), views, reps=50)
+        q_, k_, v_, attn_mask=mask, enable_gqa=True), views, reps=max(50, 2 * len(views)))
+    del views
     live = sum(lengths_l)
     nbytes = (q.numel() * q.element_size() + 2 * live * hkv * d + tables.numel() * 4 + SLOTS * 4
               + SLOTS * hq * d * 4)
@@ -283,6 +294,92 @@ def bench_paged_decode(torch, cfg):
             "bound_by": "bytes" if b_bytes >= b_ops else "operations",
             "per": f"one full-width decode tick at {SLOTS} slots ({L} launches, "
                    f"contexts {lengths_l})"}
+
+
+def bench_dense_decode(torch, cfg):
+    """Kernel #4 at the dense decode tick's shape (4 slots over a cache of
+    max_len positions), per-row and scalar lengths; returns its JSON entry."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+    from repro_torch.models.layers import KV_CACHE_SCALE
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    hkv, hq, d = cfg.num_kv_heads, cfg.num_heads, cfg.head_dim
+    lengths_l = [37, 100, 1, 180]
+    shape = (SLOTS, hkv, MAX_LEN, d)
+    n_copies = _copies(2 * SLOTS * hkv * MAX_LEN * d)
+    caches = [((torch.randn(shape, generator=g, device=dev) * 4).to(torch.float8_e4m3fn),
+               (torch.randn(shape, generator=g, device=dev) * 4).to(torch.float8_e4m3fn))
+              for _ in range(n_copies)]
+    q = torch.randn((SLOTS, hq, d), generator=g, device=dev).to(torch.bfloat16)
+    qg = q.reshape(SLOTS, hkv, -1, d)
+    lengths = torch.tensor(lengths_l, dtype=torch.int32, device=dev)
+    k0, v0 = caches[0]
+    errs = {}
+    for label, length in (("per-row", lengths), ("scalar", 180)):
+        got = fd_ops.decode_attention(q, k0, v0, length, KV_CACHE_SCALE)
+        want = flash_decode_ref(qg, k0, v0, length, KV_CACHE_SCALE).reshape(SLOTS, hq, d)
+        torch.cuda.synchronize()
+        scale_out = want.abs().max().item()
+        # f32 sums taken in another order: an error of ~1e-5 of the outputs' scale
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * scale_out)
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"flash_decode {label}: non-finite output")
+        errs[label] = ((got - want).abs().max().item(), scale_out)
+        if label == "per-row":
+            # control: every row of more than one position cut to position 0
+            cut = flash_decode_ref(qg, k0, v0, torch.ones_like(lengths), KV_CACHE_SCALE)
+            moved = (got - cut.reshape(SLOTS, hq, d)).abs().amax(dim=(1, 2)) / scale_out
+            ctrl = moved[lengths > 1].min().item()
+            if ctrl < CONTROL_MARGIN * 1e-5:
+                raise AssertionError(f"flash_decode: cutting the lengths to 1 moves a row by "
+                                     f"only {ctrl:.3e} of the output scale")
+    args = [(q, k_, v_, lengths, KV_CACHE_SCALE) for k_, v_ in caches]
+    ms, ms_wall = _time_ms(fd_ops.decode_attention, args, reps=max(50, 2 * n_copies))
+    plain_ms, _ = _time_ms(lambda q_, k_, v_, l_, s_: flash_decode_ref(
+        q_.reshape(SLOTS, hkv, -1, d), k_, v_, l_, s_), args[:2], reps=10)
+    # library yardstick: SDPA on pre-widened bf16 views of the caches cut to
+    # the longest live row (as #2's reads its live pages only), masked at
+    # each row's length, in enough copies that none is read from a warm L2
+    s_len = max(lengths_l)
+    mask = (torch.arange(s_len, device=dev)[None] < lengths[:, None])[:, None, None, :]
+    del args
+    views = [(q[:, :, None], (k_[:, :, :s_len].to(torch.bfloat16) * KV_CACHE_SCALE),
+              (v_[:, :, :s_len].to(torch.bfloat16) * KV_CACHE_SCALE))
+             for k_, v_ in (caches[i % len(caches)]
+                            for i in range(_copies(4 * SLOTS * hkv * s_len * d)))]
+    del caches
+    lib_ms, lib_wall = _time_ms(lambda q_, k_, v_: F.scaled_dot_product_attention(
+        q_, k_, v_, attn_mask=mask, enable_gqa=True), views, reps=max(50, 2 * len(views)))
+    del views
+    live = sum(lengths_l)
+    nbytes = (q.numel() * q.element_size() + 2 * live * hkv * d + SLOTS * 4
+              + SLOTS * hq * d * 4)
+    ops = 4 * live * hq * d
+    b_bytes = nbytes / HBM_BYTES_S * 1e3
+    b_ops = ops / PEAK_FLOPS["f32"] * 1e3
+    L = cfg.num_layers
+    err, scale_out = errs["per-row"]
+    print(f"[kernel] flash_decode B={SLOTS} Hq={hq} Hkv={hkv} D={d} S={MAX_LEN} "
+          f"lengths={lengths_l} fp8: max_abs_err={err:.3e} "
+          f"max_rel_err={err / scale_out:.3e} (scalar length 180: "
+          f"{errs['scalar'][0] / errs['scalar'][1]:.3e}; tol rtol=1e-05 atol=1e-05 of max "
+          f"|plain|; cut-to-1 control {ctrl:.3e}) kernel={ms:.4f}ms (wall {ms_wall:.4f}) "
+          f"plain={plain_ms:.4f}ms library(sdpa)={lib_ms:.4f}ms (wall {lib_wall:.4f}) "
+          f"bound={max(b_bytes, b_ops):.5f}ms ({nbytes} B, {ops} ops: "
+          f"{'bytes' if b_bytes >= b_ops else 'operations'}) x{L}/tick", flush=True)
+    return {"name": "flash_decode", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
+            "replaces": "src/repro/kernels/flash_decode/flash_decode.py:78",
+            "max_abs_err": max(e for e, _ in errs.values()), "ms": L * ms,
+            "plain_ms": L * plain_ms, "library_ms": L * lib_ms,
+            "bound_ms": L * max(b_bytes, b_ops),
+            "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+            "per": f"one full-width dense decode tick at {SLOTS} slots ({L} launches, "
+                   f"contexts {lengths_l} of a {MAX_LEN}-position cache)"}
 
 
 def bench_batched_lora(torch, cfg):
@@ -399,10 +496,11 @@ def _watch_logits(model):
 
 def _launch_counters():
     from repro_torch.kernels.batched_lora import ops as bl_ops
-    from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.kernels.flash_decode import flash_decode as fd_dense
+    from repro_torch.kernels.flash_decode import paged as fd_paged
     from repro_torch.kernels.ternary_matmul import ops as tm_ops
-    return {"ternary_matmul": tm_ops.launches, "paged_flash_decode": fd_ops.launches,
-            "batched_lora": bl_ops.launches}
+    return {"ternary_matmul": tm_ops.launches, "paged_flash_decode": fd_paged.launches,
+            "batched_lora": bl_ops.launches, "flash_decode": fd_dense.launches}
 
 
 def serve(torch, cfg, eng, path: str, tenants=None):
@@ -452,8 +550,10 @@ def serve(torch, cfg, eng, path: str, tenants=None):
         raise AssertionError("not every request completed with 16 tokens")
     if not bool(watch["finite"]):
         raise AssertionError("non-finite logits during serving")
+    dense = eng.kv.name == "dense"
     per_tick = {"ternary_matmul": 6 * cfg.num_layers + 1,
-                "paged_flash_decode": cfg.num_layers,
+                "paged_flash_decode": 0 if dense else cfg.num_layers,
+                "flash_decode": cfg.num_layers if dense else 0,
                 "batched_lora": 0 if ad is None else 2 * cfg.num_layers}
     for name, n in per_tick.items():
         if launches[name] != n * ticks:
@@ -461,7 +561,8 @@ def serve(torch, cfg, eng, path: str, tenants=None):
                                  f"ticks, expected {n} per tick")
     tokens = sum(len(r.output) for r in reqs)
     ttft = sorted(r.ttft_s for r in reqs)
-    out = {"path": path, "requests": len(reqs), "tokens": tokens, "ticks": ticks,
+    out = {"path": path, "kv": eng.kv.name, "requests": len(reqs), "tokens": tokens,
+           "ticks": ticks,
            "wall_s": wall, "tps": tokens / wall,
            "tick_ms_mean": wall / ticks * 1e3,
            "ttft_p50_ms": float(np.median(ttft)) * 1e3,
@@ -524,21 +625,23 @@ def profile_ticks(torch, eng, tick_ms: float, path: str, tenants=None,
 def _stepwise_watch(torch, model, cfg):
     """Wrap the kernel model's ``decode_step``: before each step, walk its
     layers from the kernel path's own activations and run each attention
-    block (on a copy of that layer's pools) and each FFN block through the
-    kernels and through the plain versions on the same input and adapter
-    index; then the logits of the final hidden state both ways. As a
-    control, the plain attention also runs with every live length cut to 1
-    (position 0 only). With an adapter index, the targeted projections
-    (where kernel #3 adds its term) are held the same way, and two more
-    runs of each projection and attention block: the plain path with every
-    index 0 (a control: how far the tenants' LoRA terms move their rows) and
-    the kernel path without adapters (null rows must equal it bit for bit).
-    The walk's kernel logits
-    must equal the real step's bit for bit, which ties it to
-    ``Model.decode_step``. Keeps, per tick, the largest relative differences
-    and the smallest relative control changes over layers (for the adapter
-    control on attention blocks, per tenant row its largest change over
-    layers, beside the smallest in any layer)."""
+    block (on a copy of that layer's pools or dense cache) and each FFN
+    block through the kernels and through the plain versions on the same
+    input and adapter index; then the logits of the final hidden state both
+    ways. As a control, the plain attention also runs with every live
+    length cut to 1 (position 0 only). Live rows are those of non-zero
+    length (paged); under a dense cache every row is live, an idle slot
+    attending its own position 0. With an adapter index, the targeted
+    projections (where kernel #3 adds its term) are held the same way, and
+    two more runs of each projection and attention block: the plain path
+    with every index 0 (a control: how far the tenants' LoRA terms move
+    their rows) and the kernel path without adapters (null rows must equal
+    it bit for bit). The walk's kernel logits must equal the real step's
+    bit for bit, which ties it to ``Model.decode_step``. Keeps, per tick,
+    the largest relative differences and the smallest relative control
+    changes over layers (for the adapter control on attention blocks, per
+    tenant row its largest change over layers, beside the smallest in any
+    layer)."""
     from repro_torch.models import attention as attn_mod
     from repro_torch.models import layers
     from repro_torch.models.transformer import Model
@@ -550,17 +653,33 @@ def _stepwise_watch(torch, model, cfg):
     def rel(a, b):
         return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
 
+    def lengths_of(kv, pos):
+        return kv.lengths if isinstance(kv, attn_mod.PagedKVState) else pos + 1
+
+    def attend(kv, i, lp, h, pos, name, is_plain, idx):
+        """One layer's attention block on a copy of its KV state; ``cut``
+        reads position 0 only."""
+        if isinstance(kv, attn_mod.PagedKVState):
+            lengths = torch.clamp(kv.lengths, max=1) if name == "cut" else kv.lengths
+            return attn_mod.gqa_decode_paged(
+                lp["attn"], h, kv.k_pool[i].clone(), kv.v_pool[i].clone(), kv.tables,
+                kv.write_page, kv.write_off, lengths, pos, cfg, plain=is_plain,
+                adapter_idx=idx)
+        k_l, v_l = kv["k"][i].clone(), kv["v"][i].clone()
+        if name == "cut":
+            return _dense_attention_cut(lp["attn"], h, k_l, v_l, pos, cfg, idx)
+        return attn_mod.gqa_decode_dense(lp["attn"], h, k_l, v_l, lengths_of(kv, pos), pos,
+                                         cfg, plain=is_plain, adapter_idx=idx)
+
     def walk(p, kv, tokens, pos, aidx):
-        live = kv.lengths > 0
-        cut = torch.clamp(kv.lengths, max=1)
-        row = {"min_len": int(kv.lengths[live].min()), "attn": 0.0, "ffn": 0.0,
+        lengths = lengths_of(kv, pos)
+        live = lengths > 0
+        row = {"min_len": int(lengths[live].min()), "attn": 0.0, "ffn": 0.0,
                "control": float("inf")}
-        runs = [("kernel", False, kv.lengths, aidx), ("plain", True, kv.lengths, aidx),
-                ("cut", True, cut, aidx)]
+        runs = [("kernel", False, aidx), ("plain", True, aidx), ("cut", True, aidx)]
         if aidx is not None:
             tenant, null = live & (aidx != 0), live & (aidx == 0)
-            runs += [("zero", True, kv.lengths, torch.zeros_like(aidx)),
-                     ("none", False, kv.lengths, None)]
+            runs += [("zero", True, torch.zeros_like(aidx)), ("none", False, None)]
             row.update(proj=0.0, null_equal=True)
             targets = [t for t in ("q", "k", "v", "o") if "lora_mt" in p["layers"][0]["attn"][t]]
             moved_blocks = []
@@ -573,7 +692,7 @@ def _stepwise_watch(torch, model, cfg):
                         continue   # its input is the attention output, held below
                     pr = {name: layers.apply_linear(lp["attn"][t], h, plain=is_plain,
                                                     adapter_idx=idx)
-                          for name, is_plain, _, idx in runs if name != "cut"}
+                          for name, is_plain, idx in runs if name != "cut"}
                     row["proj"] = max(row["proj"], rel(pr["kernel"][live], pr["plain"][live]))
                     scale = pr["plain"][live].float().abs().max()
                     if bool(tenant.any()):
@@ -583,12 +702,8 @@ def _stepwise_watch(torch, model, cfg):
                                                   moved.min().item())
                     row["null_equal"] &= bool(torch.equal(pr["kernel"][null],
                                                           pr["none"][null]))
-            out = {}
-            for name, is_plain, lengths, idx in runs:
-                out[name] = attn_mod.gqa_decode_paged(
-                    lp["attn"], h, kv.k_pool[i].clone(), kv.v_pool[i].clone(),
-                    kv.tables, kv.write_page, kv.write_off, lengths, pos, cfg,
-                    plain=is_plain, adapter_idx=idx)
+            out = {name: attend(kv, i, lp, h, pos, name, is_plain, idx)
+                   for name, is_plain, idx in runs}
             row["attn"] = max(row["attn"], rel(out["kernel"][live], out["plain"][live]))
             row["control"] = min(row["control"], rel(out["cut"][live], out["plain"][live]))
             if aidx is not None and bool(tenant.any()):
@@ -624,14 +739,33 @@ def _stepwise_watch(torch, model, cfg):
 
     def decode_step(p, kv, tokens, pos, adapter_idx=None):
         walked, row = walk(p, kv, tokens, pos, adapter_idx)
+        live = lengths_of(kv, pos) > 0
         logits, kv = inner(p, kv, tokens, pos, adapter_idx)
-        row["walk_is_step"] = bool(torch.equal(walked[kv.lengths > 0],
-                                               logits[kv.lengths > 0]))
+        row["walk_is_step"] = bool(torch.equal(walked[live], logits[live]))
         rows.append(row)
         return logits, kv
 
     model.decode_step = decode_step
     return rows
+
+
+def _dense_attention_cut(p, x, k_l, v_l, pos, cfg, adapter_idx):
+    """``gqa_decode_dense``'s plain path with attention cut to position 0 of
+    every row (the walk's control): the same projections and cache write,
+    then the plain attention over one position."""
+    from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import layers
+
+    b = x.shape[0]
+    q, k_new, v_new = attn_mod._project_qkv(p, x[:, None], cfg, pos[:, None], plain=True,
+                                            adapter_idx=adapter_idx)
+    for cache, new in ((k_l, k_new), (v_l, v_new)):
+        attn_mod.write_positions(cache, pos, attn_mod.kv_encode(new[:, 0], cache.dtype))
+    out = flash_decode_ref(q[:, 0].reshape(b, cfg.num_kv_heads, -1, cfg.head_dim), k_l, v_l,
+                           1, layers.KV_CACHE_SCALE)
+    return layers.apply_linear(p["o"], out.reshape(b, cfg.q_dim).to(x.dtype), plain=True,
+                               adapter_idx=adapter_idx)
 
 
 def _check_walk(rows, path: str, extra=()):
@@ -689,48 +823,59 @@ def _check_walk(rows, path: str, extra=()):
                                  "adapters")
 
 
-def identity(torch, cfg, params):
-    """Phase 5: kernels vs plain versions at full width."""
-    from repro_torch.models.transformer import Model
-    from repro_torch.serving.api import RequestSpec
-    from repro_torch.serving.engine import ServeEngine
-    from repro_torch.serving.kv import PagedKV
-
-    prompts = [[11, 2024, 7, 99, 5012, 3, 870, 41, 12, 9, 1000, 77],
-               [5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20]]
-    runs = []
-    for plain in (False, True):
-        model = Model(cfg, device="cuda", plain=plain)
-        watch = _watch_logits(model)
-        rows = None if plain else _stepwise_watch(torch, model, cfg)
-        eng = ServeEngine(model, params, max_slots=2, max_len=MAX_LEN, seed=0,
-                          kv=PagedKV(page=PAGE))
-        reqs = [eng.submit(p, RequestSpec(max_new_tokens=8)) for p in prompts]
-        eng.run_until_drained()
-        runs.append(([r.output for r in reqs], watch["top2"], rows))
-        del eng
-    (k_out, k_top2, rows), (p_out, _, _) = runs
-
-    # every block and the logits on the same input and state, every tick
-    _check_walk(rows, "paged")
-
-    # greedy tokens of the two paths, each run on its own
+def _greedy_agree(a_out, b_out, a_top2, prompts, what: str):
+    """Greedy tokens of two runs of the same requests must be equal, except
+    where they part at a near-tie of run a's top-2 logits (reported)."""
     report = []
-    for r, (a, b) in enumerate(zip(k_out, p_out)):
+    for r, (a, b) in enumerate(zip(a_out, b_out)):
         if a == b:
             continue
         j = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
         # tick of the j-th emission of slot r: its prompt ticks, then j more
         tick = len(prompts[r]) - 1 + j
-        vals = k_top2[tick].values[r]
+        vals = a_top2[tick].values[r]
         gap = (vals[0] - vals[1]).item()
         report.append({"request": r, "step": j, "top2_gap": gap})
         if gap >= TIE_TOL:
-            raise AssertionError(f"greedy tokens diverge at request {r} step {j} "
+            raise AssertionError(f"{what}: greedy tokens diverge at request {r} step {j} "
                                  f"without a near-tie (gap {gap:.4f}): {a} vs {b}")
-    print("[identity] greedy", json.dumps({"kernel_tokens": k_out, "plain_tokens": p_out,
+    print("[identity] greedy", json.dumps({"compared": what, "tokens": [a_out, b_out],
                                            "near_ties": report, "tie_tol": TIE_TOL}),
           flush=True)
+
+
+def identity(torch, cfg, params):
+    """Phase 5: kernels vs plain versions at full width, over the paged pool
+    and over the dense cache; then the dense and paged kernel paths' greedy
+    tokens against each other."""
+    from repro_torch.models.transformer import Model
+    from repro_torch.serving.api import RequestSpec
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.kv import DenseKV, PagedKV
+
+    prompts = [[11, 2024, 7, 99, 5012, 3, 870, 41, 12, 9, 1000, 77],
+               [5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20]]
+    kernel_runs = {}
+    for kind in ("paged", "dense"):
+        runs = []
+        for plain in (False, True):
+            model = Model(cfg, device="cuda", plain=plain)
+            watch = _watch_logits(model)
+            rows = None if plain else _stepwise_watch(torch, model, cfg)
+            kv = PagedKV(page=PAGE) if kind == "paged" else DenseKV()
+            eng = ServeEngine(model, params, max_slots=2, max_len=MAX_LEN, seed=0, kv=kv)
+            reqs = [eng.submit(p, RequestSpec(max_new_tokens=8)) for p in prompts]
+            eng.run_until_drained()
+            runs.append(([r.output for r in reqs], watch["top2"], rows))
+            del eng
+        (k_out, k_top2, rows), (p_out, _, _) = runs
+        # every block and the logits on the same input and state, every tick
+        _check_walk(rows, kind)
+        # greedy tokens of the two paths, each run on its own
+        _greedy_agree(k_out, p_out, k_top2, prompts, f"{kind}: kernel vs plain")
+        kernel_runs[kind] = (k_out, k_top2)
+    _greedy_agree(kernel_runs["dense"][0], kernel_runs["paged"][0], kernel_runs["dense"][1],
+                  prompts, "kernel path: dense vs paged")
 
 
 def identity_adapters(torch, cfg, params):
@@ -780,8 +925,8 @@ def main() -> int:
     # 2. build
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    _build.build(["ternary_matmul", "paged_flash_decode", "batched_lora"])
-    print(f"[build] nvcc sm_90a, three sources in parallel: "
+    _build.build(["ternary_matmul", "paged_flash_decode", "batched_lora", "flash_decode"])
+    print(f"[build] nvcc sm_90a, four sources in parallel: "
           f"{time.perf_counter() - t0:.1f}s {_build.BUILD_SECONDS}", flush=True)
     for name, log in _build.PTXAS.items():
         for line in log.splitlines():
@@ -792,13 +937,13 @@ def main() -> int:
     from repro_torch.launch.serve import build_adapters
     from repro_torch.models.transformer import Model
     from repro_torch.serving.engine import ServeEngine
-    from repro_torch.serving.kv import PagedKV
+    from repro_torch.serving.kv import DenseKV, PagedKV
 
     cfg = reduce_config(get_config("bitnet-2b"), "full")
 
     # 3. kernels against their plain versions, timed
     kernels = [bench_ternary_matmul(torch, cfg), bench_paged_decode(torch, cfg),
-               bench_batched_lora(torch, cfg)]
+               bench_batched_lora(torch, cfg), bench_dense_decode(torch, cfg)]
     torch.cuda.empty_cache()
 
     # 4. full-width serving through the kernels
@@ -830,6 +975,13 @@ def main() -> int:
     profile_ticks(torch, engine, tick_ms, "adapters",
                   ["tenant-0", None, "tenant-1", "tenant-0"])
     del engine, serving
+    # c. the dense fp8 cache (the engine's default backend): kernel #4 in
+    # place of kernel #2
+    engine = ServeEngine(model, params, max_slots=SLOTS, max_len=MAX_LEN, seed=0,
+                         kv=DenseKV())
+    by_path["dense"], tick_ms = serve(torch, cfg, engine, "dense")
+    profile_ticks(torch, engine, tick_ms, "dense")
+    del engine
     torch.cuda.empty_cache()
 
     # 5. identity between the kernel and plain paths
@@ -837,7 +989,8 @@ def main() -> int:
     identity_adapters(torch, cfg, params)
 
     for entry in kernels:
-        entry["launches"] = by_path["adapters"][entry["name"]]
+        main_path = "dense" if entry["name"] == "flash_decode" else "adapters"
+        entry["launches"] = by_path[main_path][entry["name"]]
         entry["launches_by_path"] = {p: n[entry["name"]] for p, n in by_path.items()}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

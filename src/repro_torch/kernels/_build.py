@@ -3,8 +3,8 @@
 Each source compiles on its own with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, loaded with ``ctypes``: every pointer and
 the stream cross as ``c_void_p``. A library is named after the hash of its
-source, so an edited source rebuilds and an unchanged one loads the library
-already built. The build goes to ``build/repro_torch_kernels/`` at the root
+source and of the shared headers (``csrc/*.cuh``), so an edited source or
+header rebuilds and an unchanged one loads the library already built. The build goes to ``build/repro_torch_kernels/`` at the root
 of the checkout, at first use. A failed build raises with nvcc's output.
 
 Nothing here runs at import: the CPU tests import every module of the port.
@@ -55,8 +55,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

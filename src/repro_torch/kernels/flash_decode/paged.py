@@ -18,11 +18,10 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_decode._checks import operand_codes
 
 launches = _build.LaunchCount()
 
-_Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: q, q_dtype, k_pool, v_pool, kv_dtype, tables, lengths, out, B, Hkv, G, D,
 #: page, n_p, scale, kv_scale, stream
@@ -40,36 +39,19 @@ def paged_flash_decode(q: torch.Tensor, k_pool: torch.Tensor,
     b, hkv, g, d = q.shape
     _, hkv_pool, page, d_pool = k_pool.shape
     n_p = tables.shape[1]
-    if not q.is_cuda:
-        raise ValueError("paged_flash_decode launches a CUDA kernel: q must "
-                         "be on a CUDA device")
+    q_code, kv_code = operand_codes("paged_flash_decode", q, k_pool, v_pool,
+                                    tables=tables, lengths=lengths)
     if (hkv_pool, d_pool) != (hkv, d) or v_pool.shape != k_pool.shape:
         raise ValueError(f"pool shape {tuple(k_pool.shape)} / "
                          f"{tuple(v_pool.shape)} does not fit q {tuple(q.shape)}")
-    if d % 32 or d > 1024 or g > 8:
-        raise ValueError(f"kernel takes head_dim % 32 == 0, head_dim <= 1024 "
-                         f"and at most 8 query heads per KV head (D={d}, G={g})")
-    if q.dtype not in _Q_DTYPES:
-        raise TypeError(f"q must be one of {list(_Q_DTYPES)}, not {q.dtype}")
-    if k_pool.dtype not in _KV_DTYPES or v_pool.dtype != k_pool.dtype:
-        raise TypeError(f"KV pools must share a type in {list(_KV_DTYPES)}")
     if tables.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise TypeError("tables and lengths must be int32")
-    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
-                    ("tables", tables), ("lengths", lengths)):
-        if t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
-        raise ValueError("KV pools must start on a 16-byte boundary (the "
-                         "kernel reads key rows in 16-byte loads)")
     out = torch.empty((b, hkv, g, d), dtype=torch.float32, device=q.device)
     if b == 0:
         return out
     rc = _build.function("paged_flash_decode", _ARGTYPES)(
-        q.data_ptr(), _Q_DTYPES[q.dtype], k_pool.data_ptr(), v_pool.data_ptr(),
-        _KV_DTYPES[k_pool.dtype], tables.data_ptr(), lengths.data_ptr(),
+        q.data_ptr(), q_code, k_pool.data_ptr(), v_pool.data_ptr(), kv_code,
+        tables.data_ptr(), lengths.data_ptr(),
         out.data_ptr(), b, hkv, g, d, page, n_p,
         float(scale if scale is not None else d ** -0.5), float(kv_scale),
         torch.cuda.current_stream(q.device).cuda_stream)

@@ -1,9 +1,14 @@
 """Serving CLI of the port: build a packed-ternary model from a seed and
-run a synthetic request stream through ``ServeEngine`` over the paged fp8
-KV pool (the port of ``repro/launch/serve.py``'s synthetic-stream path).
+run a synthetic request stream through ``ServeEngine`` over the dense fp8
+KV cache (``--kv dense``, the default, as in the reference) or the paged
+fp8 pool (``--kv paged``) (the port of ``repro/launch/serve.py``'s
+synthetic-stream path).
 
 On the card, at the published width of bitnet-2b::
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch bitnet-2b \\
+        --preset full --kv dense --slots 4 --requests 8 --max-len 1024 \\
+        --prompt-len 12 --max-new 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch bitnet-2b \\
         --preset full --kv paged --page 64 --slots 4 --requests 8 \\
         --prompt-len 12 --max-new 16
@@ -34,7 +39,7 @@ from repro_torch.serving.adapters import (AdapterRegistry, AdapterServing,
                                           synthetic_adapter_stacks)
 from repro_torch.serving.api import RequestSpec, SamplingParams
 from repro_torch.serving.engine import ServeEngine
-from repro_torch.serving.kv import PagedKV
+from repro_torch.serving.kv import DenseKV, PagedKV
 
 
 def build_adapters(model: Model, n_adapters: int, *, rank: int = 8,
@@ -61,11 +66,12 @@ def build_adapters(model: Model, n_adapters: int, *, rank: int = 8,
 
 
 def build_engine(arch: str, preset: str, *, slots: int, max_len: int,
-                 page: int = 64, n_pages=None, seed: int = 0, device=None,
-                 plain: bool = False, n_adapters: int = 0,
-                 adapter_rank: int = 8, adapter_budget_kb=None
-                 ) -> ServeEngine:
-    """A seeded model at ``preset`` size behind a paged-KV engine, with
+                 kv: str = "dense", page: int = 64, n_pages=None,
+                 seed: int = 0, device=None, plain: bool = False,
+                 n_adapters: int = 0, adapter_rank: int = 8,
+                 adapter_budget_kb=None) -> ServeEngine:
+    """A seeded model at ``preset`` size behind an engine over ``kv``
+    (``"dense"``, or ``"paged"`` with ``page``/``n_pages``), with
     ``n_adapters`` synthetic tenants when that is above 0."""
     cfg = reduce_config(get_config(arch), preset)
     model = Model(cfg, device=device, plain=plain)
@@ -75,9 +81,12 @@ def build_engine(arch: str, preset: str, *, slots: int, max_len: int,
                                budget_kb=adapter_budget_kb, slots=slots,
                                seed=seed)
                 if n_adapters > 0 else None)
+    if kv not in ("dense", "paged"):
+        raise ValueError(f"kv must be 'dense' or 'paged', not {kv!r}")
+    backend = (DenseKV() if kv == "dense"
+               else PagedKV(page=page, n_pages=n_pages))
     return ServeEngine(model, params, max_slots=slots, max_len=max_len,
-                       seed=seed, kv=PagedKV(page=page, n_pages=n_pages),
-                       adapters=adapters)
+                       seed=seed, kv=backend, adapters=adapters)
 
 
 def main(argv=None) -> int:
@@ -93,10 +102,11 @@ def main(argv=None) -> int:
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-p", type=float, default=1.0,
                     help="nucleus sampling mass (1.0 = disabled)")
-    ap.add_argument("--kv", default="paged", choices=("paged",))
-    ap.add_argument("--page", type=int, default=64)
+    ap.add_argument("--kv", default="dense", choices=("dense", "paged"))
+    ap.add_argument("--page", type=int, default=64, help="--kv paged only")
     ap.add_argument("--n-pages", type=int, default=None,
-                    help="pool capacity (default: slots * max_len / page)")
+                    help="--kv paged pool capacity (default: slots * max_len "
+                         "/ page)")
     ap.add_argument("--adapters", type=int, default=0,
                     help="register this many synthetic QLoRA tenants and "
                          "serve them multi-tenant (0 = single personality)")
@@ -113,7 +123,7 @@ def main(argv=None) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     eng = build_engine(args.arch, args.preset, slots=args.slots,
-                       max_len=args.max_len, page=args.page,
+                       max_len=args.max_len, kv=args.kv, page=args.page,
                        n_pages=args.n_pages, seed=args.seed,
                        device=args.device, n_adapters=args.adapters,
                        adapter_rank=args.adapter_rank,
@@ -141,6 +151,7 @@ def main(argv=None) -> int:
     lats = [r.latency_s for r in done] or [0.0]
     out = {
         "device": str(eng.device),
+        "kv": eng.kv.name,
         "requests": len(reqs),
         "completed": stats.completed,
         "tokens_out": stats.tokens_out,

@@ -1,11 +1,15 @@
-"""GQA decode attention over the paged KV pool (the port of the paged part of
-``repro/models/attention.py``).
+"""GQA decode attention over a dense KV cache or the paged KV pool (the port
+of the decode part of ``repro/models/attention.py`` and of
+``repro/models/transformer.py``'s ``_gqa_decode_gspmd``).
 
-The pool is ``(L, n_pages + 1, Hkv, page, D)`` float8 e4m3 with one scratch
-page last. :func:`gqa_decode_paged` writes the new token's k/v into its page
-**in place** (a pool is hundreds of MB at full width; a functional copy per
+The dense cache is ``{"k", "v"}`` of ``(L, B, Hkv, S, D)`` float8 e4m3
+(:func:`init_kv_cache`); the pool is ``(L, n_pages + 1, Hkv, page, D)`` with
+one scratch page last. Both decode functions write the new token's k/v
+**in place** (a cache is hundreds of MB at full width; a functional copy per
 layer and tick, as the reference's JAX update is, would double that), then
-runs the paged flash-decode kernel on the block tables.
+run their flash-decode kernel: :func:`gqa_decode_dense` over each row's
+first ``pos + 1`` positions, :func:`gqa_decode_paged` through the block
+tables.
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_decode import ops as fd_ops
 from repro_torch.kernels.flash_decode.paged import paged_flash_decode_ref
+from repro_torch.kernels.flash_decode.ref import flash_decode_ref
 from repro_torch.models import layers
 from repro_torch.models.layers import FP8_MAX, KV_CACHE_SCALE, Params
 
@@ -38,6 +43,15 @@ class PagedKVState:
     write_page: torch.Tensor
     write_off: torch.Tensor
     lengths: torch.Tensor
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, n_layers: int,
+                  *, device: torch.device) -> Params:
+    """Zeroed dense fp8 e4m3 KV cache ``{"k", "v"}``, each ``(n_layers,
+    batch, Hkv, max_len, D)``."""
+    shape = (n_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
+    return {name: torch.zeros(shape, dtype=torch.float8_e4m3fn, device=device)
+            for name in ("k", "v")}
 
 
 def kv_encode(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -66,6 +80,23 @@ def scatter_tokens(pool: torch.Tensor, page_ids: torch.Tensor,
     bytes are written through a uint8 view, which every device indexes."""
     raw = pool.view(torch.uint8)
     raw[..., page_ids.long(), :, offsets.long(), :] = toks.view(torch.uint8)
+
+
+def check_dense_write(pos, max_len: int) -> None:
+    """Raise IndexError if a host array of write positions reaches past a
+    dense cache of ``max_len`` (the reference clamps such a write)."""
+    if len(pos) and int(pos.max()) >= max_len:
+        raise IndexError(f"decode write at position {int(pos.max())} of a "
+                         f"dense cache of {max_len}")
+
+
+def write_positions(cache: torch.Tensor, pos: torch.Tensor,
+                    toks: torch.Tensor) -> None:
+    """Write toks (B, H, D), already in the cache's type, at position
+    ``pos[b]`` of row b of a dense cache layer (B, H, S, D), in place,
+    through a uint8 view as :func:`scatter_tokens` does."""
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    cache.view(torch.uint8)[rows, :, pos.long(), :] = toks.view(torch.uint8)
 
 
 def _project_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -114,6 +145,38 @@ def gqa_decode_paged(p: Params, x: torch.Tensor, k_pool_l: torch.Tensor,
     else:
         out = fd_ops.paged_decode_attention(q, k_pool_l, v_pool_l, tables,
                                             lengths, KV_CACHE_SCALE)
+    out = out.reshape(bsz, cfg.q_dim).to(x.dtype)
+    return layers.apply_linear(p["o"], out, plain=plain,
+                               adapter_idx=adapter_idx)
+
+
+def gqa_decode_dense(p: Params, x: torch.Tensor, k_cache_l: torch.Tensor,
+                     v_cache_l: torch.Tensor, lengths: torch.Tensor,
+                     pos: torch.Tensor, cfg: ModelConfig, *,
+                     plain: bool = False,
+                     adapter_idx: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """One-token GQA decode off one layer of the dense cache (the reference's
+    ``_gqa_decode_gspmd`` with per-slot positions). Writes the new token's
+    k/v at each row's ``pos`` (in place), then attends over the row's first
+    ``lengths = pos + 1`` positions (int32, made once per tick by the
+    caller). x: (B, D); caches (B, Hkv, S, D); pos (B,) with every entry
+    ``< S`` (checked by ``Model.decode_step`` or ``DenseKV``; the reference
+    clamps such a write silently); ``adapter_idx`` (B,) as in
+    :func:`_project_qkv`. Returns (B, D)."""
+    bsz = x.shape[0]
+    q, k_new, v_new = _project_qkv(p, x[:, None], cfg, pos[:, None],
+                                   plain=plain, adapter_idx=adapter_idx)
+    write_positions(k_cache_l, pos, kv_encode(k_new[:, 0], k_cache_l.dtype))
+    write_positions(v_cache_l, pos, kv_encode(v_new[:, 0], v_cache_l.dtype))
+    q = q[:, 0]                                          # (B, H, D)
+    if plain:
+        qg = q.reshape(bsz, cfg.num_kv_heads, -1, cfg.head_dim)
+        out = flash_decode_ref(qg, k_cache_l, v_cache_l, lengths,
+                               KV_CACHE_SCALE)
+    else:
+        out = fd_ops.decode_attention(q, k_cache_l, v_cache_l, lengths,
+                                      KV_CACHE_SCALE)
     out = out.reshape(bsz, cfg.q_dim).to(x.dtype)
     return layers.apply_linear(p["o"], out, plain=plain,
                                adapter_idx=adapter_idx)

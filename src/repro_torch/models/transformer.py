@@ -1,5 +1,5 @@
-"""The dense GQA model in serve mode (the port of the paged-kernel decode
-path of ``repro/models/transformer.py``).
+"""The dense GQA model in serve mode (the port of the decode paths of
+``repro/models/transformer.py``: the dense cache and the paged kernel).
 
 Parameters mirror the reference's tree, with the scanned ``layers`` stack
 split into a Python list of per-layer dicts::
@@ -15,7 +15,7 @@ codes on the device; no unpacked copy is kept.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -27,6 +27,9 @@ from repro_torch.models import layers
 from repro_torch.models.layers import Params
 
 NEG_INF = -1e30
+
+#: a dense KV cache, ``{"k", "v"}`` of ``(L, B, Hkv, S, D)``
+DenseCache = Dict[str, torch.Tensor]
 
 
 def _init_linear(g: torch.Generator, k: int, n: int,
@@ -40,15 +43,20 @@ class Model:
     """``Model(cfg, device=None)`` serves on the card; pass ``device="cpu"``
     for the plain PyTorch path. ``plain=True`` runs every kernel's plain
     version on any device (the reference path the kernels are held
-    against)."""
+    against). ``kv_widen`` is the type the reference widens the dense
+    cache to in attention; only ``"f32"`` is ported."""
 
     def __init__(self, cfg: ModelConfig, *,
                  device: Optional[Union[str, torch.device]] = None,
-                 plain: bool = False):
+                 plain: bool = False, kv_widen: str = "f32"):
         if cfg.family != "dense" or cfg.attention_kind != "gqa":
             raise NotImplementedError(
                 f"the port serves the dense GQA family only, not "
                 f"{cfg.family}/{cfg.attention_kind}")
+        if kv_widen != "f32":
+            raise NotImplementedError(
+                f"kv_widen={kv_widen!r}: the port widens the KV cache to f32 "
+                f"only")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.plain = plain
@@ -102,29 +110,53 @@ class Model:
             logits = logits.masked_fill(pad, NEG_INF)
         return logits
 
+    # -- caches ------------------------------------------------------------------
+    def init_cache(self, batch: int, max_len: int) -> DenseCache:
+        """Zeroed dense fp8 KV cache for ``batch`` slots of ``max_len``."""
+        return attn_mod.init_kv_cache(self.cfg, batch, max_len,
+                                      self.cfg.num_layers, device=self.device)
+
     # -- decode ----------------------------------------------------------------
     @torch.no_grad()
-    def decode_step(self, p: Params, state: attn_mod.PagedKVState,
+    def decode_step(self, p: Params,
+                    state: Union[DenseCache, attn_mod.PagedKVState],
                     tokens: torch.Tensor, pos: torch.Tensor,
                     adapter_idx: Optional[torch.Tensor] = None
-                    ) -> Tuple[torch.Tensor, attn_mod.PagedKVState]:
-        """One token for every slot over a :class:`PagedKVState`: per layer,
-        the new token's k/v go into their pages (in place) and attention
-        reads the pages through the block tables. tokens/pos: (B,) int.
-        ``adapter_idx`` (B,) int32 selects each slot's resident multi-tenant
-        adapter on the projections whose params carry a ``lora_mt`` stack
-        (``serving/adapters/runtime.py``); ``None`` runs the base model
-        alone. Returns (logits (B, V) f32, the same state with updated
-        pools)."""
+                    ) -> Tuple[torch.Tensor,
+                               Union[DenseCache, attn_mod.PagedKVState]]:
+        """One token for every slot. ``state`` is either the dense cache of
+        :meth:`init_cache`, where each layer writes the new token's k/v at
+        ``pos`` and attends over positions ``<= pos`` of the row, or a
+        :class:`PagedKVState`, where they go into their pages and attention
+        reads the pages through the block tables. Either is updated in place
+        and returned as it came. tokens/pos: (B,) int. A dense write at
+        ``pos >= max_len`` raises: here when ``pos`` lies on the CPU, where
+        the check costs no device sync, and in ``DenseKV.decode_state`` on
+        the engine's host copy of ``pos``. ``adapter_idx`` (B,) int32 selects each
+        slot's resident multi-tenant adapter on the projections whose params
+        carry a ``lora_mt`` stack (``serving/adapters/runtime.py``); ``None``
+        runs the base model alone. Returns (logits (B, V) f32, the state)."""
         cfg, plain = self.cfg, self.plain
         kw = dict(plain=plain, adapter_idx=adapter_idx)
+        if isinstance(state, attn_mod.PagedKVState):
+            def attend(i, lp, h):
+                return attn_mod.gqa_decode_paged(
+                    lp["attn"], h, state.k_pool[i], state.v_pool[i],
+                    state.tables, state.write_page, state.write_off,
+                    state.lengths, pos, cfg, **kw)
+        else:
+            if not pos.is_cuda:
+                attn_mod.check_dense_write(pos.numpy(), state["k"].shape[3])
+            lengths = (pos + 1).to(torch.int32)
+
+            def attend(i, lp, h):
+                return attn_mod.gqa_decode_dense(
+                    lp["attn"], h, state["k"][i], state["v"][i], lengths, pos,
+                    cfg, **kw)
         x = layers.embed_tokens(p["embed"], tokens, self.dtype)
         for i, lp in enumerate(p["layers"]):
             h = layers.rms_norm(x, lp["norm1"]["w"], cfg.norm_eps)
-            x = x + attn_mod.gqa_decode_paged(
-                lp["attn"], h, state.k_pool[i], state.v_pool[i], state.tables,
-                state.write_page, state.write_off, state.lengths, pos, cfg,
-                **kw)
+            x = x + attend(i, lp, h)
             h2 = layers.rms_norm(x, lp["norm2"]["w"], cfg.norm_eps)
             x = x + layers.apply_ffn(lp["ffn"], h2, cfg.ffn_kind, **kw)
         x = layers.rms_norm(x, p["final_norm"]["w"], cfg.norm_eps)

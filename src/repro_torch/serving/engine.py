@@ -2,18 +2,23 @@
 port of ``repro/serving/engine.py``'s ``ServeEngine``, the subset this slice
 runs).
 
-  * ``max_slots`` sequences share one ``Model.decode_step`` per tick over the
-    paged fp8 KV pool (``kv=PagedKV(...)``): every tick decodes one token for
-    every active slot; inactive slots write the scratch page and attend
-    nothing.
+  * ``max_slots`` sequences share one ``Model.decode_step`` per tick over a
+    KV backend: the contiguous fp8 cache (``kv=DenseKV()``, the default, as
+    in the reference) or the paged fp8 pool (``kv=PagedKV(...)``). Every
+    tick decodes one token for every active slot; inactive slots feed token
+    0 at position 0 (dense: into their own row, which the next request
+    overwrites; paged: into the scratch page, attending nothing).
   * **continuous batching**: slots free as sequences finish and are refilled
     from the scheduler's queue mid-flight.
   * **token-mode prefill** (the paper's own): prompt tokens stream through
     ``decode_step`` one per tick, so prefill and decode are one path.
-  * **admission and preemption**: a request is admitted when the pool holds
-    its prompt's pages; when the pool runs dry mid-decode the scheduler names
-    a victim, whose pages are released and which re-enters the queue with
-    its generated tokens as prompt.
+  * **admission and preemption**: under ``PagedKV`` a request is admitted
+    when the pool holds its prompt's pages; when the pool runs dry
+    mid-decode the scheduler names a victim, whose pages are released and
+    which re-enters the queue with its generated tokens as prompt. Under
+    ``DenseKV`` pages cost nothing and capacity is unbounded, so a request
+    is admissible whenever a slot is free and nothing is preempted for
+    pages.
   * **multi-tenant adapters** (``adapters=`` an
     :class:`~repro_torch.serving.adapters.AdapterServing`): a request may
     name an ``adapter_id``, a frozen ternary QLoRA fine-tune from the
@@ -30,10 +35,10 @@ runs).
     within the port regardless of co-scheduled traffic (not the reference's
     threefry bits).
 
-Not in this slice (the reference has them): dense KV, batched and chunked
-prefill, the prefix cache, speculative decoding, cancel and deadline expiry,
-tiered memory (and with it adapter prefetch), tracing and the split-tick
-async pipeline.
+Not in this slice (the reference has them): batched and chunked prefill,
+the prefix cache, speculative decoding, cancel and deadline expiry, tiered
+memory (and with it adapter prefetch), tracing and the split-tick async
+pipeline.
 Deadlines still order the queue (EDF within a priority class).
 """
 from __future__ import annotations
@@ -49,7 +54,7 @@ from repro_torch.models.transformer import Model
 from repro_torch.serving.adapters import AdapterServing
 from repro_torch.serving.api import RequestSpec, SamplingParams
 from repro_torch.serving.gateway.scheduler import Scheduler
-from repro_torch.serving.kv import KVBackend, PagedKV
+from repro_torch.serving.kv import DenseKV, KVBackend
 
 NEG_INF = -1e30
 
@@ -153,7 +158,7 @@ class ServeEngine:
         # unseeded stochastic draws; seeded requests get their own stream
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
         self.scheduler = scheduler if scheduler is not None else Scheduler()
-        self.kv = kv if kv is not None else PagedKV()
+        self.kv = kv if kv is not None else DenseKV()
         self.kv.bind(model, max_slots, max_len)
         self.pool = self.kv.pool
         self.pos = np.zeros((max_slots,), np.int32)       # next write position

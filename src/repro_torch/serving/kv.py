@@ -1,9 +1,10 @@
 """KV backends: the engine's cache contract behind one protocol (the port of
-``repro/serving/kv.py``; ``DenseKV`` is not ported yet).
+``repro/serving/kv.py``'s decode part).
 
 A :class:`KVBackend` owns cache alloc / commit / free plus the admission
 accounting, and hands the decode step a state object that
-``Model.decode_step`` understands. :class:`PagedKV` hands it a
+``Model.decode_step`` understands. :class:`DenseKV` hands it the contiguous
+fp8 cache ``{"k", "v"}``; :class:`PagedKV` a
 :class:`~repro_torch.models.attention.PagedKVState`: the shared fp8 pool,
 this tick's block tables and write targets.
 """
@@ -15,7 +16,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.models.attention import PagedKVState
+from repro_torch.models.attention import PagedKVState, check_dense_write
 from repro_torch.serving.paged_kv import PagedConfig, PagePool
 
 
@@ -58,6 +59,36 @@ class KVBackend:
     def commit(self, new_state, active: Sequence[int], pos: np.ndarray) -> None:
         """Store the decode step's updated state."""
         raise NotImplementedError
+
+
+class DenseKV(KVBackend):
+    """Contiguous per-slot cache ``(L, max_slots, Hkv, max_len, D)``, the
+    paper's fixed on-chip SRAM budget: every slot owns ``max_len`` positions
+    from the start, so admission costs no pages and capacity is unbounded
+    (the :class:`KVBackend` defaults)."""
+
+    name = "dense"
+
+    def __init__(self):
+        self.cache = None
+
+    def bind(self, model, max_slots: int, max_len: int) -> None:
+        if self.cache is not None:
+            raise RuntimeError("KVBackend instances are engine-owned: build "
+                               "a fresh one per engine")
+        self.cache = model.init_cache(max_slots, max_len)
+
+    def decode_state(self, active, pos):
+        """The whole cache: every slot writes at its ``pos`` (inactive slots
+        at 0, which their next request overwrites before reading). A ``pos``
+        past the cache raises here, on the host, so the decode step needs no
+        device sync to check it."""
+        check_dense_write(pos, self.cache["k"].shape[3])
+        return self.cache
+
+    def commit(self, new_state, active, pos) -> None:
+        """The decode step wrote the cache in place and returned it."""
+        self.cache = new_state
 
 
 class PagedKV(KVBackend):

@@ -46,6 +46,11 @@ from repro_torch.serving.api import RequestSpec
 from repro_torch.serving.engine import ServeEngine
 from repro_torch.serving.kv import PagedKV
 
+# one intra-op thread per process: the suite runs several pytest workers
+# on a few cores, and torch's default pool (a thread per core) in each of
+# them oversubscribes the CPU many times over
+torch.set_num_threads(1)
+
 SPEC = ad.AdapterSpec(rank=8, alpha=16.0, targets=("q", "v"))
 J_SPEC = jad.AdapterSpec(rank=8, alpha=16.0, targets=("q", "v"))
 #: logits: f32 sums in another order than XLA's, after identical bf16 steps
@@ -537,7 +542,7 @@ def test_adapter_greedy_tokens_match_reference_engine(tiny):
 
 def test_serve_cli_with_adapters_on_cpu(capsys):
     assert serve_cli.main(["--preset", "tiny", "--device", "cpu", "--requests", "4",
-                           "--slots", "2", "--max-new", "3", "--page", "8",
+                           "--slots", "2", "--max-new", "3", "--kv", "paged", "--page", "8",
                            "--adapters", "3", "--adapter-rate", "0.75"]) == 0
     lines = capsys.readouterr().out.splitlines()
     out = json.loads([ln for ln in lines if ln.startswith("[serve] {")][-1][len("[serve] "):])

@@ -10,10 +10,18 @@ import torch
 from repro_torch.core import ternary
 from repro_torch.kernels.batched_lora import ops as bl_ops
 from repro_torch.kernels.batched_lora.ref import batched_lora_ref
+from repro_torch.kernels.flash_decode import flash_decode as fd_dense
 from repro_torch.kernels.flash_decode import ops as fd_ops
+from repro_torch.kernels.flash_decode import paged as fd_paged
 from repro_torch.kernels.flash_decode.paged import paged_flash_decode_ref
+from repro_torch.kernels.flash_decode.ref import flash_decode_ref
 from repro_torch.kernels.ternary_matmul import ops as tm_ops
 from repro_torch.kernels.ternary_matmul.ref import ternary_matmul_ref
+
+# one intra-op thread per process: the suite runs several pytest workers
+# on a few cores, and torch's default pool (a thread per core) in each of
+# them oversubscribes the CPU many times over
+torch.set_num_threads(1)
 
 pytestmark = pytest.mark.cuda
 
@@ -77,16 +85,98 @@ def test_paged_decode_kernel_vs_plain(cuda, kv_dtype, q_dtype):
     tables[3, :2] = torch.tensor([5, 3])
     lengths = torch.tensor([150, 5, 0, 64], dtype=torch.int32)
     args = [t.to(cuda) for t in (q.to(q_dtype), k, v, tables, lengths)]
-    before = fd_ops.launches.n
+    before = fd_paged.launches.n
     got = fd_ops.paged_decode_attention(*args, 4.0)
     torch.cuda.synchronize()
-    assert fd_ops.launches.n == before + 1
+    assert fd_paged.launches.n == before + 1
     want = paged_flash_decode_ref(args[0].reshape(b, hkv, g, d), *args[1:], 4.0)
     # f32 sums over D and over positions taken in another order: the error
     # scales with the outputs (|v · kv_scale| reaches ~50 here), ~1e-5 of them
     torch.testing.assert_close(got, want.reshape(b, hkv * g, d), rtol=1e-5,
                                atol=1e-5 * want.abs().max().item())
     assert torch.isfinite(got).all() and not got[2].any()
+
+
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv_dtype", [torch.float8_e4m3fn, torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("lengths", [[37, 100, 1, 180], [0, 300, 2, 300], 129],
+                         ids=["per-row", "edges-0-and-S", "scalar"])
+def test_dense_decode_kernel_vs_plain(cuda, kv_dtype, q_dtype, lengths):
+    """Kernel #4 against its plain version at the full-width head shape
+    (Hkv 5, G 4, D 128) over a cache of S = 300 whose positions past every
+    live length hold NaN bytes: live rows within 1e-5 of the plain output's
+    max |value| (f32 sums in another order), a length-0 row exactly 0, a
+    length-S row reading the whole cache, every row finite."""
+    rng = np.random.default_rng(3)
+    b, hkv, g, d, s_len = 4, 5, 4, 128, 300
+    q = torch.from_numpy(rng.normal(size=(b, hkv * g, d)).astype(np.float32))
+    shape = (b, hkv, s_len, d)
+    k = torch.from_numpy((rng.normal(size=shape) * 3).astype(np.float32)).to(kv_dtype)
+    v = torch.from_numpy((rng.normal(size=shape) * 3).astype(np.float32)).to(kv_dtype)
+    lens = torch.as_tensor(lengths, dtype=torch.int32).expand(b)
+    for row in range(b):
+        k.view(torch.uint8)[row, :, int(lens[row]):] = 0x7F
+        v.view(torch.uint8)[row, :, int(lens[row]):] = 0x7F
+    length = lengths if isinstance(lengths, int) else torch.tensor(lengths, dtype=torch.int32,
+                                                                  device=cuda)
+    q, k, v = q.to(cuda, q_dtype), k.to(cuda), v.to(cuda)
+    before = fd_dense.launches.n
+    got = fd_ops.decode_attention(q, k, v, length, 4.0)
+    torch.cuda.synchronize()
+    assert fd_dense.launches.n == before + 1 and got.dtype == torch.float32
+    want = flash_decode_ref(q.reshape(b, hkv, g, d), k, v, length, 4.0).reshape(b, hkv * g, d)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * want.abs().max().item())
+    assert torch.isfinite(got).all()
+    for row in range(b):
+        if int(lens[row]) == 0:
+            assert not got[row].any()
+
+
+def test_dense_decode_kernel_refuses_bad_input(cuda):
+    """The kernel's entry takes CUDA tensors of one device and shape only,
+    and raises (before any launch) on anything else."""
+    q = torch.zeros((2, 2, 4, 128), device=cuda)
+    kv = torch.zeros((2, 2, 64, 128), device=cuda, dtype=torch.float8_e4m3fn)
+    lengths = torch.full((2,), 3, dtype=torch.int32, device=cuda)
+    good = dict(q=q, k=kv, v=kv, lengths=lengths)
+    before = fd_dense.launches.n
+    for bad in (dict(q=q.cpu()), dict(k=kv.cpu(), v=kv.cpu()), dict(lengths=lengths.long()),
+                dict(k=kv[:, :1], v=kv[:, :1]), dict(q=q[..., :96])):
+        with pytest.raises((ValueError, TypeError)):
+            fd_dense.flash_decode(**(good | bad))
+    assert fd_dense.launches.n == before
+
+
+def test_tiny_dense_engine_through_kernel(cuda):
+    """The tiny preset on the card over ``DenseKV`` (the engine's default):
+    every tick launches kernel #4 once per layer and kernel #2 never, and a
+    decode step through the kernels agrees with the plain path on the same
+    cache (logits within 1e-2 of their max |value|, as for the paged
+    engine)."""
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.serving.api import RequestSpec
+
+    eng = build_engine("bitnet-2b", "tiny", slots=2, max_len=64, seed=0, device="cuda")
+    assert eng.kv.name == "dense"
+    fd, pg, ticks = fd_dense.launches.n, fd_paged.launches.n, eng.stats.ticks
+    reqs = [eng.submit([3, 14, 15, 92, 65][:n], RequestSpec(max_new_tokens=6))
+            for n in (2, 5, 3)]
+    eng.run_until_drained()
+    assert all(r.state == "done" and len(r.output) == 6 for r in reqs)
+    assert fd_dense.launches.n - fd == eng.cfg.num_layers * (eng.stats.ticks - ticks)
+    assert fd_paged.launches.n == pg
+
+    eng.submit([7, 8, 9], RequestSpec(max_new_tokens=4))
+    eng.tick()
+    cache = eng.kv.decode_state([0], eng.pos)
+    saved = {key: t.clone() for key, t in cache.items()}
+    tok = torch.tensor([8, 0], device=cuda)
+    pos = torch.from_numpy(eng.pos.copy()).to(cuda)
+    got, _ = eng.model.decode_step(eng.params, cache, tok, pos)
+    eng.model.plain = True
+    want, _ = eng.model.decode_step(eng.params, saved, tok, pos)
+    scale = want[0].abs().max().item()
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-2 * scale)
 
 
 def _lora_stacks(n_adapters, k, r, n, seed):
@@ -162,13 +252,13 @@ def test_tiny_model_kernels_vs_plain(cuda):
     from repro_torch.launch.serve import build_engine
     from repro_torch.serving.api import RequestSpec
 
-    eng = build_engine("bitnet-2b", "tiny", slots=2, max_len=64, page=8, seed=0,
+    eng = build_engine("bitnet-2b", "tiny", slots=2, max_len=64, kv="paged", page=8, seed=0,
                        device="cuda")
-    mm, fd = tm_ops.launches.n, fd_ops.launches.n
+    mm, fd = tm_ops.launches.n, fd_paged.launches.n
     reqs = [eng.submit([3, 14, 15, 92, 65][:n], RequestSpec(max_new_tokens=6))
             for n in (2, 5, 3)]
     eng.run_until_drained()
-    assert tm_ops.launches.n > mm and fd_ops.launches.n > fd
+    assert tm_ops.launches.n > mm and fd_paged.launches.n > fd
     assert all(r.state == "done" and len(r.output) == 6 for r in reqs)
 
     eng.submit([7, 8, 9], RequestSpec(max_new_tokens=4))
@@ -194,7 +284,7 @@ def test_tiny_engine_with_adapters_through_kernel(cuda):
     from repro_torch.launch.serve import build_engine
     from repro_torch.serving.api import RequestSpec
 
-    kw = dict(slots=3, max_len=64, page=8, seed=0, device="cuda")
+    kw = dict(slots=3, max_len=64, kv="paged", page=8, seed=0, device="cuda")
     outs = []
     for n_adapters in (0, 3):
         eng = build_engine("bitnet-2b", "tiny", n_adapters=n_adapters, **kw)

@@ -10,6 +10,11 @@ from pathlib import Path
 import pytest
 import torch
 
+# one intra-op thread per process: the suite runs several pytest workers
+# on a few cores, and torch's default pool (a thread per core) in each of
+# them oversubscribes the CPU many times over
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
@@ -36,7 +41,8 @@ def test_no_jax_or_reference_imports(path):
 def test_port_files_found():
     names = {p.name for p in PORT_FILES}
     assert {"engine.py", "ternary.py", "ops.py", "paged.py", "chip_smoke.py", "qlora.py",
-            "registry.py", "cache.py", "runtime.py", "from_checkpoint.py"} <= names
+            "registry.py", "cache.py", "runtime.py", "from_checkpoint.py", "flash_decode.py",
+            "ref.py", "kv.py"} <= names
 
 
 def test_entry_points_need_the_card_or_cpu():

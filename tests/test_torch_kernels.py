@@ -20,6 +20,11 @@ from repro_torch.kernels.flash_decode.paged import (paged_flash_decode,
 from repro_torch.kernels.ternary_matmul import ops as tm_ops
 from repro_torch.kernels.ternary_matmul.ref import ternary_matmul_ref
 
+# one intra-op thread per process: the suite runs several pytest workers
+# on a few cores, and torch's default pool (a thread per core) in each of
+# them oversubscribes the CPU many times over
+torch.set_num_threads(1)
+
 #: tests/test_kernels.py's tolerances: f32 (summation order only) and bf16
 TOL = {torch.float32: dict(rtol=1e-5, atol=1e-4),
        torch.bfloat16: dict(rtol=2e-2, atol=2e-1)}

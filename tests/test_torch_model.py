@@ -25,6 +25,11 @@ from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tl
 from repro_torch.models.transformer import Model
 
+# one intra-op thread per process: the suite runs several pytest workers
+# on a few cores, and torch's default pool (a thread per core) in each of
+# them oversubscribes the CPU many times over
+torch.set_num_threads(1)
+
 #: logits: f32 sums in another order than XLA's, after identical bf16 steps
 LOGIT_TOL = dict(rtol=1e-5, atol=1e-5)
 

@@ -29,6 +29,11 @@ from repro_torch.serving.gateway.scheduler import Scheduler
 from repro_torch.serving.kv import PagedKV
 from repro_torch.serving.paged_kv import PagedConfig, PagePool
 
+# one intra-op thread per process: the suite runs several pytest workers
+# on a few cores, and torch's default pool (a thread per core) in each of
+# them oversubscribes the CPU many times over
+torch.set_num_threads(1)
+
 
 @pytest.fixture(scope="module")
 def tiny():
@@ -175,7 +180,7 @@ def test_engine_edges(tiny):
 
 def test_serve_cli_on_cpu(capsys):
     assert serve_cli.main(["--preset", "tiny", "--device", "cpu", "--requests", "3",
-                           "--slots", "2", "--max-new", "3", "--page", "8"]) == 0
+                           "--slots", "2", "--max-new", "3", "--kv", "paged", "--page", "8"]) == 0
     line = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("[serve]")][-1]
     out = json.loads(line[len("[serve] "):])
     assert out["completed"] == 3 and out["tokens_out"] == 9 and out["device"] == "cpu"

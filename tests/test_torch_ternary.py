@@ -11,6 +11,11 @@ from repro.models import layers as jl
 from repro_torch.core import ternary as tt
 from repro_torch.models import layers as tl
 
+# one intra-op thread per process: the suite runs several pytest workers
+# on a few cores, and torch's default pool (a thread per core) in each of
+# them oversubscribes the CPU many times over
+torch.set_num_threads(1)
+
 
 def _ternary(shape, seed):
     return np.random.default_rng(seed).integers(-1, 2, size=shape).astype(np.int8)
